@@ -24,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("conv1.cu", "roi_align.cu", "nms.cu")
+SOURCES = ("conv1.cu", "roi_align.cu", "nms.cu", "topk.cu")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # NMS compares iou > thresh against the plain version bit for bit: no FMA
@@ -32,7 +32,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 EXTRA_FLAGS = {"nms.cu": ["--fmad=false"]}
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"conv1": 0, "roi_align": 0, "nms": 0}
+LAUNCHES = {"conv1": 0, "roi_align": 0, "roi_align_bwd": 0, "nms": 0, "topk": 0}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
@@ -44,8 +44,11 @@ _SIGNATURES = {
     "frcnn_conv1_f32": [_P, _P, _P, _I, _I, _I, _P],
     "frcnn_roi_align_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "frcnn_roi_align_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "frcnn_roi_align_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "frcnn_roi_align_bwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "frcnn_nms_keep_mask": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
     "frcnn_nms_smem_bytes": [_I, _I],
+    "frcnn_topk_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     "frcnn_cuda_error_string": [_I],
 }
 _RESTYPES = {"frcnn_nms_smem_bytes": ctypes.c_size_t,

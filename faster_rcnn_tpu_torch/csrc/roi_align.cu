@@ -1,9 +1,12 @@
-// RoI align (forward): TF1-bilinear crop-and-resize of integer feature-space
-// ROIs [x1, y1, x2, y2] to P x P cells, NHWC in, (B, R, P, P, C) out.
+// RoI align: TF1-bilinear crop-and-resize of integer feature-space ROIs
+// [x1, y1, x2, y2] to P x P cells, NHWC in, (B, R, P, P, C) out; and its
+// backward, the 4-tap scatter-add of the pooled cotangent into the map.
 //
 // Replaces: faster_rcnn_tpu/ops/roi_align_pallas.py _kernel (pallas_call at
-// :178, driven by _forward :104, entry roi_align_pallas :195). The backward
-// (_bwd :213, a 4-tap scatter-add) is not ported yet.
+// :178, driven by _forward :104, entry roi_align_pallas :195). Its backward
+// (_bwd :213) is no Pallas kernel there: XLA's transpose of the einsum form
+// roi_align_einsum, computed in f32 and cast to the feature dtype. The
+// backward kernel below is its counterpart.
 //
 // What bounds it on the H100: at B=16, 300 ROIs, a 38x94x1024 bf16 map it
 // must read the 117.1 MB feature map once and write 481.7 MB of pooled
@@ -94,6 +97,81 @@ int launch(const void* feat, const void* rois, void* out, int B, int H, int W, i
   return (int)cudaGetLastError();
 }
 
+// Backward. What bounds it: at B=16, R=64 (the train step) it must read the
+// 102.8 MB bf16 cotangent and write the 117.0 MB bf16 gradient of the map,
+// 0.066 ms at 3.35 TB/s. The sampler draws ROIs with replacement, so ROIs
+// repeat and overlap and no block owns a part of the map: every tap is an
+// f32 atomic add into a zeroed f32 copy of the map, which one pass then
+// rounds to the feature dtype (the JAX VJP also sums in f32 and rounds
+// once). The f32 scratch and the atomics are this design's cost beyond the
+// bound; the order of the atomic adds varies from run to run, so the result
+// is not bit-deterministic. One block takes one output row i of one ROI, as
+// the forward does; its threads run along the channels, so each warp's
+// atomics land on 32 consecutive floats. A tap whose weight is zero is
+// skipped.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+roi_align_bwd_kernel(const T* __restrict__ grad, const float* __restrict__ rois,
+                     float* __restrict__ dfeat, int H, int W, int C, int R, int P) {
+  const int b = blockIdx.y;
+  const int r = blockIdx.x / P;
+  const int i = blockIdx.x % P;
+  const float* roi = rois + ((size_t)b * R + r) * 4;
+  const float x1 = roi[0], y1 = roi[1];
+  const float crop_w = roi[2] - x1, crop_h = roi[3] - y1;
+  const Taps ty = taps(i, y1, crop_h, P, H);
+  const float wy[2] = {1.f - ty.frac, ty.frac};
+  float* rows[2] = {dfeat + ((size_t)b * H + ty.lo) * W * C,
+                    dfeat + ((size_t)b * H + ty.hi) * W * C};
+  const T* gb = grad + ((((size_t)b * R + r) * P + i) * P) * C;
+
+  for (int j = 0; j < P; ++j) {
+    const Taps tx = taps(j, x1, crop_w, P, W);
+    const float wx[2] = {1.f - tx.frac, tx.frac};
+    const int xs[2] = {tx.lo, tx.hi};
+    const T* g = gb + (size_t)j * C;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      if (wy[a] == 0.f) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (wx[e] == 0.f) continue;
+        const float w = wy[a] * wx[e];
+        float* dst = rows[a] + (size_t)xs[e] * C;
+        for (int c = threadIdx.x; c < C; c += THREADS) atomicAdd(dst + c, to_f32(g[c]) * w);
+      }
+    }
+  }
+}
+
+// f32 -> bf16, four values a thread a step (n is a multiple of 4).
+__global__ void f32_to_bf16_kernel(const float4* __restrict__ in, __nv_bfloat162* __restrict__ out,
+                                   size_t n4) {
+  for (size_t v = blockIdx.x * (size_t)blockDim.x + threadIdx.x; v < n4;
+       v += (size_t)gridDim.x * blockDim.x) {
+    const float4 f = in[v];
+    out[2 * v] = __floats2bfloat162_rn(f.x, f.y);
+    out[2 * v + 1] = __floats2bfloat162_rn(f.z, f.w);
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* grad, const void* rois, void* dfeat32, void* dfeat, int B, int H, int W,
+               int C, int R, int P, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t n = (size_t)B * H * W * C;
+  cudaError_t err = cudaMemsetAsync(dfeat32, 0, n * sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(R * P, B);
+  roi_align_bwd_kernel<T><<<grid, THREADS, 0, s>>>((const T*)grad, (const float*)rois,
+                                                   (float*)dfeat32, H, W, C, R, P);
+  if (dfeat != dfeat32) {
+    f32_to_bf16_kernel<<<132 * 8, 256, 0, s>>>((const float4*)dfeat32, (__nv_bfloat162*)dfeat,
+                                               n / 4);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int frcnn_roi_align_bf16(const void* feat, const void* rois, void* out, int B, int H,
@@ -104,6 +182,20 @@ extern "C" int frcnn_roi_align_bf16(const void* feat, const void* rois, void* ou
 extern "C" int frcnn_roi_align_f32(const void* feat, const void* rois, void* out, int B, int H,
                                    int W, int C, int R, int P, void* stream) {
   return launch<float>(feat, rois, out, B, H, W, C, R, P, stream);
+}
+
+// dfeat32: a (B, H, W, C) f32 scratch, zeroed here; dfeat: the bf16 result.
+extern "C" int frcnn_roi_align_bwd_bf16(const void* grad, const void* rois, void* dfeat32,
+                                        void* dfeat, int B, int H, int W, int C, int R, int P,
+                                        void* stream) {
+  return launch_bwd<__nv_bfloat16>(grad, rois, dfeat32, dfeat, B, H, W, C, R, P, stream);
+}
+
+// The f32 result is accumulated in place: dfeat32 and dfeat are one buffer.
+extern "C" int frcnn_roi_align_bwd_f32(const void* grad, const void* rois, void* dfeat32,
+                                       void* dfeat, int B, int H, int W, int C, int R, int P,
+                                       void* stream) {
+  return launch_bwd<float>(grad, rois, dfeat32, dfeat, B, H, W, C, R, P, stream);
 }
 
 extern "C" const char* frcnn_cuda_error_string(int err) {

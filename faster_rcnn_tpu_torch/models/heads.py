@@ -1,4 +1,4 @@
-"""RPN and ResNet detector heads, forward only.
+"""RPN and ResNet detector heads.
 
 Counterpart of faster_rcnn_tpu/models/heads.py (``VggDetHead`` waits for the
 VGG16 slice). The RPN's 1x1 outputs and the dense outputs run in float32.

@@ -1,7 +1,9 @@
-"""Shared model building blocks, forward only.
+"""Shared model building blocks.
 
 Counterpart of faster_rcnn_tpu/models/layers.py plus the convolution and
-dense layers that Flax provides there. Activations are NHWC, as in the JAX
+dense layers that Flax provides there. The frozen batch norm and the channel
+scale go through :class:`FrozenAffine`, the counterpart of the JAX
+package's ``_frozen_affine`` custom VJP. Activations are NHWC, as in the JAX
 package; a convolution hands PyTorch the NCHW view of an NHWC tensor, which
 has channels_last strides, so no copy is made on the way in or out.
 Parameters are float32 and cast to the layer's compute dtype at use, as
@@ -80,6 +82,29 @@ class Dense(nn.Module):
         return F.linear(x.float(), self.weight, self.bias)
 
 
+class FrozenAffine(torch.autograd.Function):
+    """``y = (f32(x) - mean) * inv + bias`` cast back to ``x``'s dtype, with
+    the backward of faster_rcnn_tpu's ``_frozen_affine``: ``dx = cot *
+    inv`` in the cotangent's dtype, and no gradient for ``mean``, ``inv`` or
+    ``bias`` (their parameters are frozen by the freeze rules). PyTorch's
+    own autograd of the forward would give ``dx`` in f32 behind an extra
+    cast and reduce the per-channel gradients over every map. ``mean=None``
+    is the zero mean of the channel scale."""
+
+    @staticmethod
+    def forward(ctx, x, mean, inv, bias):
+        ctx.save_for_backward(inv)
+        # x - mean promotes to f32 inside the one kernel, and addcmul computes
+        # bias + centred * inv: three passes over the map instead of five
+        centred = x.float() if mean is None else x - mean
+        return torch.addcmul(bias, centred, inv).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, cot):
+        (inv,) = ctx.saved_tensors
+        return cot * inv.to(cot.dtype), None, None, None
+
+
 class FrozenBatchNorm(nn.Module):
     """Inference-only batch norm over the last axis:
     ``((f32(x) - mean) * inv + bias)`` cast back to the working dtype, with
@@ -103,10 +128,7 @@ class FrozenBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv = self.scale / torch.sqrt(self.var + self.epsilon)
-        x = x.to(self.dtype)
-        # x - mean promotes to f32 inside the one kernel, and addcmul computes
-        # bias + centred * inv: three passes over the map instead of five
-        return torch.addcmul(self.bias, x - self.mean, inv).to(x.dtype)
+        return FrozenAffine.apply(x.to(self.dtype), self.mean, inv, self.bias)
 
 
 class ChannelScale(nn.Module):
@@ -125,5 +147,4 @@ class ChannelScale(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
-        return torch.addcmul(self.bias, x.float(), self.scale).to(x.dtype)
+        return FrozenAffine.apply(x.to(self.dtype), None, self.scale, self.bias)

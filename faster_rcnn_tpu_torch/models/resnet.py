@@ -1,13 +1,16 @@
-"""ResNet-50 backbone and the post-RoI stage-5 head, forward only.
+"""ResNet-50 backbone and the post-RoI stage-5 head.
 
 Counterpart of faster_rcnn_tpu/models/resnet.py (depth 50; the Caffe-style
 ResNet-101 waits for a later slice). Module names are the Keras layer names
 of the Flax tree (``conv1``, ``bn_conv1``, ``res2a.res2a_branch2a``,
 ``res2a.bn2a_branch2a``, ...), so weights map across by name
-(utils/convert.py). Activations are NHWC.
+(utils/convert.py) and the freeze rules read the same names
+(:func:`resnet_param_block`, :func:`is_norm_param`). Activations are NHWC.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -91,7 +94,8 @@ class Conv1(nn.Module):
 
 class ResNetBackbone(nn.Module):
     """conv1 + stages 2-4: (B, H, W, 3) -> (B, H/16, W/16, 1024) for canvas
-    dims that are multiples of 32."""
+    dims that are multiples of 32. Stage 1 is conv1, its batch norm, the
+    ReLU and the max-pool; stages 2-4 are the ``res{stage}*`` blocks."""
 
     def __init__(self, depth: int = 50, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
@@ -106,15 +110,30 @@ class ResNetBackbone(nn.Module):
                 self.add_module(name, mod)
             cin = filters[2]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.dtype)
-        x = F.relu(self.bn_conv1(self.conv1(x)))
-        # 3x3/s2 VALID max-pool (resnet.py:413), on the channels_last NCHW view
-        x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
+    def _stage(self, x: torch.Tensor, stage: int) -> torch.Tensor:
+        if stage == 1:
+            x = F.relu(self.bn_conv1(self.conv1(x)))
+            # 3x3/s2 VALID max-pool (resnet.py:413), on the channels_last NCHW view
+            return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
         for name, mod in self.named_children():
-            if name.startswith("res"):
+            if name.startswith(f"res{stage}"):
                 x = mod(x)
         return x
+
+    def run_stages(self, x: torch.Tensor, first: int, last: int,
+                   stop_grad_stage: int = 0) -> torch.Tensor:
+        """Stages ``first`` .. ``last`` on ``x``. A stage at or below
+        ``stop_grad_stage`` runs without autograd: that is the JAX package's
+        ``stop_gradient`` after stage k (resnet.py:134-144), the same update,
+        and the frozen prefix keeps no activations for a backward."""
+        grad = torch.is_grad_enabled()
+        for stage in range(first, last + 1):
+            with torch.set_grad_enabled(grad and stage > stop_grad_stage):
+                x = self._stage(x, stage)
+        return x
+
+    def forward(self, x: torch.Tensor, stop_grad_stage: int = 0) -> torch.Tensor:
+        return self.run_stages(x.to(self.dtype), 1, 4, stop_grad_stage)
 
 
 class ResNetStage5(nn.Module):
@@ -133,3 +152,25 @@ class ResNetStage5(nn.Module):
         for mod in self.children():
             x = mod(x)
         return x.float().mean(dim=(1, 2)).to(x.dtype)
+
+
+def resnet_param_block(path: Sequence[str]) -> int | None:
+    """The stage a parameter belongs to, for the freeze rules: conv1 and its
+    batch norm are stage 1 (resnet.py:408-413 train1), ``res4b...`` stage
+    4, ``res5a...`` in the detector head stage 5; None outside any stage.
+    ``path`` is the parameter's name split at the dots."""
+    for p in path:
+        if p in ("conv1", "bn_conv1", "scale_conv1"):
+            return 1
+        for prefix in ("res", "bn", "scale"):
+            if p.startswith(prefix):
+                rest = p[len(prefix):]
+                if rest and rest[0].isdigit():
+                    return int(rest[0])
+    return None
+
+
+def is_norm_param(path: Sequence[str]) -> bool:
+    """True for batch-norm and channel-scale parameters, which never train
+    (resnet.py bn_training=False)."""
+    return any(p.startswith("bn") or p.startswith("scale") for p in path)

@@ -21,16 +21,17 @@ def area_plus_one(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def iou_matrix(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
-    """All-pairs IoU, result[i, j] = IoU(boxes1[i], boxes2[j]); no +1
+    """All-pairs IoU, result[..., i, j] = IoU(boxes1[..., i], boxes2[..., j])
+    over (..., N, 4) x (..., M, 4) with broadcast leading axes; no +1
     convention, zero-area unions give 0."""
-    b1 = boxes1.float()[:, None, :]
-    b2 = boxes2.float()[None, :, :]
+    b1 = boxes1.float()[..., :, None, :]
+    b2 = boxes2.float()[..., None, :, :]
     inter_w = torch.clamp_min(
         torch.minimum(b1[..., 2], b2[..., 2]) - torch.maximum(b1[..., 0], b2[..., 0]), 0.0)
     inter_h = torch.clamp_min(
         torch.minimum(b1[..., 3], b2[..., 3]) - torch.maximum(b1[..., 1], b2[..., 1]), 0.0)
     inter = inter_w * inter_h
-    union = area(boxes1.float())[:, None] + area(boxes2.float())[None, :] - inter
+    union = area(boxes1.float())[..., :, None] + area(boxes2.float())[..., None, :] - inter
     pos = union > 0
     return torch.where(pos, inter / torch.where(pos, union, torch.ones_like(union)),
                        torch.zeros_like(union))

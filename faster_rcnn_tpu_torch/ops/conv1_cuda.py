@@ -3,8 +3,11 @@ wrapper of the kernel in csrc/conv1.cu and its plain version.
 
 Replaces faster_rcnn_tpu/ops/conv1_pallas.py ``conv1_pallas_v2`` (and the v1
 ``conv1_pallas``, the same function). :func:`conv1_plain` is the counterpart
-of ``conv1_xla``. Forward only: the stem is frozen in every production
-schedule, and its backward comes with the training slice.
+of ``conv1_xla``. The backward is no kernel, in the JAX package either
+(conv1_pallas.py:163-166 takes XLA's VJP of ``conv1_xla``): it is autograd
+of :func:`conv1_plain`. The stem is frozen in every production schedule, so
+the train step cuts the backward before it; the backward runs when
+``freeze_blocks`` leaves the stem trainable.
 """
 
 from __future__ import annotations
@@ -26,15 +29,8 @@ def conv1_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
-def conv1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Stem conv without bias, f32 accumulation, output in ``x``'s dtype. A
-    CPU tensor takes the plain version; a CUDA tensor launches the kernel."""
-    if x.dim() != 4 or x.shape[-1] != 3 or tuple(w.shape) != (7, 7, 3, 64):
-        raise ValueError(f"want x (B, H, W, 3) and w (7, 7, 3, 64), got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, h, wd, _ = x.shape
-    if h % 2 or wd % 2:
-        raise ValueError(f"stem canvas dims must be even, got {h}x{wd}")
     if x.device.type == "cpu":
         return conv1_plain(x, w)
     if x.device.type != "cuda" or w.device != x.device:
@@ -52,3 +48,33 @@ def conv1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.check(err, "conv1")
     _build.count_launch("conv1")
     return out
+
+
+class _Conv1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        xd, wd = x.detach().requires_grad_(need[0]), w.detach().requires_grad_(need[1])
+        with torch.enable_grad():
+            out = conv1_plain(xd, wd)
+            wanted = [t for t, n in zip((xd, wd), need) if n]
+            grads = iter(torch.autograd.grad(out, wanted, grad))
+        return tuple(next(grads) if n else None for n in need)
+
+
+def conv1(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Stem conv without bias, f32 accumulation, output in ``x``'s dtype,
+    differentiable in ``x`` and ``w``. A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel."""
+    if x.dim() != 4 or x.shape[-1] != 3 or tuple(w.shape) != (7, 7, 3, 64):
+        raise ValueError(f"want x (B, H, W, 3) and w (7, 7, 3, 64), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(f"stem canvas dims must be even, got {x.shape[1]}x{x.shape[2]}")
+    return _Conv1.apply(x, w)

@@ -5,8 +5,8 @@ conv-space anchor grid with banker's rounding, clip to each image's actual
 conv extent, mask anchors over canvas padding to NEG_INF, keep the top
 ``pre_nms`` by score, then exact greedy NMS to ``post_nms``.
 
-The top-k is a stable descending ``torch.sort``: ties keep ascending index,
-as ``lax.top_k`` does (``torch.topk`` does not promise that order).
+The top-k runs the top-k kernel (ops/sort_cuda.py, the counterpart of the
+JAX package's ``lax.top_k`` here): ties keep ascending index.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from faster_rcnn_tpu_torch.ops import boxes as box_ops
 from faster_rcnn_tpu_torch.ops import nms as nms_ops
+from faster_rcnn_tpu_torch.ops import sort_cuda
 from faster_rcnn_tpu_torch.ops.targets import BBREG_MULTIPLIERS
 
 
@@ -66,8 +67,7 @@ def generate_proposals(rpn_cls_prob: torch.Tensor, rpn_bbreg: torch.Tensor,
 
     pre_nms = min(pre_nms, n)
     masked = torch.where(valid, probs, torch.full_like(probs, nms_ops.NEG_INF))
-    top_scores, top_idx = torch.sort(masked, dim=1, descending=True, stable=True)
-    top_scores, top_idx = top_scores[:, :pre_nms], top_idx[:, :pre_nms]
+    top_scores, top_idx = sort_cuda.topk_sorted(masked.contiguous(), pre_nms)
     top_boxes = torch.gather(rois, 1, top_idx[..., None].expand(-1, -1, 4))
     top_valid = top_scores > nms_ops.NEG_INF / 2
 

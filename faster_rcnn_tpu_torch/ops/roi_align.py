@@ -6,10 +6,11 @@ feature-map space, ``[x1, y1, x2, y2]``, the crop being ``img[y1:y2, x1:x2]``
 defaults: the source coordinate of output cell ``i`` is ``i * (crop / P)``,
 with taps ``floor(src)`` and ``min(floor(src) + 1, crop - 1)``.
 
-The detection path runs the CUDA kernel behind
+The detection path and the train step run the CUDA kernels behind
 :func:`faster_rcnn_tpu_torch.ops.roi_align_cuda.roi_align`; the functions
-here are its plain version (:func:`roi_align_batched`, the gather form) and a
-test oracle (:func:`roi_align_einsum`).
+here are their plain version (:func:`roi_align_batched`, the gather form,
+whose autograd is the plain backward) and a test oracle
+(:func:`roi_align_einsum`).
 """
 
 from __future__ import annotations

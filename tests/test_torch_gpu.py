@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from faster_rcnn_tpu_torch import _build
-from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda
+from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda, sort, sort_cuda
 
 pytestmark = pytest.mark.gpu
 
@@ -82,6 +82,61 @@ def test_nms_kernel_bit_exact(cuda, n, n_valid, tile, iou, enough, scale):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("k", [128, 256, 6000, 8000])
+def test_topk_kernel_bit_exact(cuda, k):
+    """The train step's and the detect call's shapes: 16 rows of 64,296
+    scores with -1e30 masks, tie plateaus and signed zeros."""
+    rng = np.random.RandomState(k)
+    x = rng.uniform(size=(16, 64296)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < 0.3] = -1e30
+    x[1, rng.randint(0, 64296, 3000)] = 0.5
+    x[2, :5000] = -0.0
+    x[2, 5000:9000] = 0.0
+    x[3] = -1e30
+    x[4, 64000:] = np.inf
+    scores = torch.tensor(x, device=cuda)
+    v, i = sort_cuda.topk_sorted(scores, k)
+    pv, pi = sort.topk_sorted_plain(scores, k)
+    assert torch.equal(i, pi)
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+def test_roi_align_backward_kernel_matches_plain(cuda, dtype, rel):
+    """f32 atomics in a run-dependent order against the plain scatter-add:
+    the sums agree to f32 rounding, and in bf16 to one rounding of the
+    result."""
+    rng = np.random.RandomState(3)
+    b, h, w, c, r = 2, 19, 33, 64, 40
+    x1 = rng.randint(0, w - 2, (b, r))
+    y1 = rng.randint(0, h - 2, (b, r))
+    x2 = np.maximum(np.minimum(x1 + rng.randint(1, 20, (b, r)), w - 1), x1 + 1)
+    y2 = np.maximum(np.minimum(y1 + rng.randint(1, 12, (b, r)), h - 1), y1 + 1)
+    rois = np.stack([x1, y1, x2, y2], -1).astype(np.float32)
+    rois[1, :10] = rois[1, 10:20]  # repeated ROIs, as the sampler draws
+    rois = torch.tensor(rois, device=cuda)
+    g = torch.tensor(rng.standard_normal((b, r, 7, 7, c)), dtype=dtype, device=cuda)
+    got = roi_align_cuda.roi_align_backward(g, rois, (b, h, w, c), 7)
+    want = roi_align_cuda.roi_align_backward_plain(g, rois, (b, h, w, c), dtype, 7)
+    assert got.dtype == dtype
+    _close(got, want, rel)
+    feat = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=dtype, device=cuda,
+                        requires_grad=True)
+    roi_align_cuda.roi_align(feat, rois, 7).backward(g)
+    _close(feat.grad, want, rel)
+
+
+def test_conv1_backward_matches_plain(cuda):
+    rng = np.random.RandomState(4)
+    x = torch.tensor(rng.uniform(-100, 100, (2, 38, 130, 3)), dtype=torch.float32, device=cuda)
+    w = torch.tensor(rng.standard_normal((7, 7, 3, 64)) * 0.1, dtype=torch.float32, device=cuda,
+                     requires_grad=True)
+    g = torch.tensor(rng.standard_normal((2, 19, 65, 64)), dtype=torch.float32, device=cuda)
+    conv1_cuda.conv1(x, w).backward(g)
+    (want,) = torch.autograd.grad(conv1_cuda.conv1_plain(x, w), w, g)
+    _close(w.grad, want, 1e-5)
+
+
 def test_wrappers_count_launches_and_reject_bad_input(cuda):
     before = dict(_build.LAUNCHES)
     x = torch.zeros(1, 8, 8, 3, dtype=torch.bfloat16, device=cuda)
@@ -96,3 +151,10 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         roi_align_cuda.roi_align(torch.zeros(1, 4, 4, 6, device=cuda),
                                  torch.zeros(1, 2, 4, device=cuda), 7)
+    sort_cuda.topk_sorted(torch.zeros(2, 100, device=cuda), 10)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["topk"] == before["topk"] + 1
+    with pytest.raises(TypeError):
+        sort_cuda.topk_sorted(torch.zeros(2, 100, dtype=torch.float64, device=cuda), 10)
+    with pytest.raises(ValueError):
+        sort_cuda.topk_sorted(torch.zeros(1, 40000, device=cuda), 20000)
