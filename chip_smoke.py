@@ -8,10 +8,10 @@ Phases, each of which fails the run on any error:
   2. build: nvcc for sm_90a of every kernel, with the ptxas report;
   3. kernels: each kernel against its plain PyTorch version on the card, on
      inputs captured from the two paths below (ResNet-50 KITTI, B=16): the
-     detection path and the joint train step. Each reports its time, the
-     plain version's time, a PyTorch library call's time where one
-     computes the same function, and the bound from the H100's published
-     peaks;
+     detection path and the joint train step; K4 also on topk_adversarial's
+     rows at k = 8000 and 128. Each reports its time, the plain version's
+     time, a PyTorch library call's time where one computes the same
+     function, and the bound from the H100's published peaks;
   4. detect: full-width ResNet-50 KITTI detection (608x1504 canvases, B=16,
      seeded random weights) through make_detect_fn, with the launch count of
      every kernel over the timed batches, a torch.profiler table of one
@@ -324,9 +324,34 @@ def check_nms(label, args, kw) -> dict:
     return c
 
 
+def topk_adversarial(k: int, b: int = 16, n: int = 64296, seed: int = 0) -> np.ndarray:
+    """Seeded (b, n) f32 scores with K4's hard cases, one to a row (rows past
+    b are left out): uniform scores with 30% masked to -1e30 in every row,
+    then row 1 a 0.5 plateau; row 2 -0.0, then +0.0; row 3 all -1e30;
+    row 4 a tail of +inf; row 5 all NaN; row 6 NaN of both signs and -inf;
+    rows 7 and 8 k // 2 scores above a plateau (-1e30, then 0.25) that holds
+    the k-th key and runs over every slice boundary; row 0 stays plain."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(size=(max(b, 9), n)).astype(np.float32)
+    x[rng.uniform(size=x.shape) < 0.3] = -1e30
+    x[1, rng.randint(0, n, n // 20)] = 0.5
+    x[2, :n // 12] = -0.0
+    x[2, n // 12:n // 7] = 0.0
+    x[3] = -1e30
+    x[4, n - n // 200:] = np.inf
+    x[5] = np.nan
+    for value in (np.nan, -np.nan, -np.inf):
+        x[6, rng.randint(0, n, n // 50)] = value
+    for row, plateau in ((7, -1e30), (8, 0.25)):
+        x[row] = plateau
+        x[row, rng.choice(n, k // 2, replace=False)] = rng.uniform(0.5, 1.0, k // 2)
+    return x[:b]
+
+
 def check_topk(label, scores, k) -> dict:
-    """Bit for bit against the stable sort; the library call is that sort
-    alone, ``torch.sort(stable=True)``."""
+    """Bit for bit against the plain version (a stable sort of total-order
+    int32 keys); the library call is ``torch.sort(stable=True)`` of the
+    scores."""
     with uncounted():
         v, i = sort_cuda.topk_sorted(scores, k)
         pv, pi = sort.topk_sorted_plain(scores, k)
@@ -340,6 +365,17 @@ def check_topk(label, scores, k) -> dict:
               scores.numel() * 4 + b * k * 12, b * n, F32_FLOPS, shape=[b, n], k=k)
     _log_case("topk", c, f"{tuple(scores.shape)} k={k}: mismatches={mismatches}")
     return c
+
+
+def check_topk_adversarial(dev) -> list:
+    """K4 on topk_adversarial's rows (the GPU tests' hard cases) at the
+    detect call's k and the sampler's, beside the paths' own inputs."""
+    cases = [check_topk(f"adversarial k={k}", torch.tensor(topk_adversarial(k), device=dev), k)
+             for k in (8000, 128)]
+    bad = [c["case"] for c in cases if not c["ok"]]
+    if bad:
+        raise RuntimeError(f"K4 disagrees with its plain version: {bad}")
+    return cases
 
 
 def check_kernels(calls: dict, path: str) -> dict:
@@ -366,9 +402,10 @@ def check_kernels(calls: dict, path: str) -> dict:
 
 
 def kernel_entries(train_cases: dict, detect_cases: dict, train_launches: dict,
-                   detect_launches: dict) -> list:
+                   detect_launches: dict, topk_adversarial_cases: list) -> list:
     """The kernels line: per kernel the sums over one train step's launches
-    (this slice's path) and, under "detect", over one detect call's."""
+    (this slice's path) and, under "detect", over one detect call's; K4 also
+    lists its adversarial cases."""
     def total(cases):
         if not cases:
             return None
@@ -386,6 +423,10 @@ def kernel_entries(train_cases: dict, detect_cases: dict, train_launches: dict,
                  **total(train_cases[name])}
         det = total(detect_cases.get(name))
         entry["detect"] = None if det is None else dict(det, launches=detect_launches[name])
+        if name == "topk":
+            entry["adversarial"] = [{key: c[key] for key in ("case", "ms", "library_ms",
+                                                              "max_abs_err")}
+                                    for c in topk_adversarial_cases]
         out.append(entry)
     return out
 
@@ -829,6 +870,7 @@ def main() -> int:
     calls, first = run.capture()
     with torch.inference_mode():
         detect_cases = check_kernels(calls, "detect")
+        adversarial = check_topk_adversarial(dev)
     del calls
     det = phase_detect(run, first)
     det["breakdown_ms"] = phase_breakdown(run)
@@ -849,11 +891,13 @@ def main() -> int:
     per_step = {k: v / TRAIN_STEPS for k, v in tr["launches"].items()}
     per_call = {k: v / BATCHES for k, v in det["launches"].items()}
     log(f"[launches] per train step {per_step}; per detect call {per_call}")
-    kernels = kernel_entries(train_cases, detect_cases, tr["launches"], det["launches"])
+    kernels = kernel_entries(train_cases, detect_cases, tr["launches"], det["launches"],
+                             adversarial)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kernels": kernels, "cases": {"train": train_cases,
-                                                               "detect": detect_cases},
+        json.dump({"card": card, "kernels": kernels,
+                   "cases": {"train": train_cases, "detect": detect_cases,
+                             "topk_adversarial": adversarial},
                    "detect": det, "train": tr, "whole_path": whole}, f, indent=1)
     log(card["smi"])
     log(json.dumps({"kernels": kernels}))

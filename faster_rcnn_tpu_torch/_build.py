@@ -48,10 +48,12 @@ _SIGNATURES = {
     "frcnn_roi_align_bwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "frcnn_nms_keep_mask": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
     "frcnn_nms_smem_bytes": [_I, _I],
-    "frcnn_topk_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "frcnn_topk_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "frcnn_topk_work_bytes": [_I, _I, _I],
     "frcnn_cuda_error_string": [_I],
 }
 _RESTYPES = {"frcnn_nms_smem_bytes": ctypes.c_size_t,
+             "frcnn_topk_work_bytes": ctypes.c_size_t,
              "frcnn_cuda_error_string": ctypes.c_char_p}
 
 

@@ -3,24 +3,33 @@
 Replaces faster_rcnn_tpu/ops/sort_pallas.py ``topk_sorted_pallas`` (the
 bitonic kernel, a bit-identical drop-in for ``lax.top_k``). It takes every
 top-k of the port: the proposal prescore truncation and the RPN anchor
-sampler. One launch handles a whole batch, one block per row.
+sampler. One call handles a whole batch: each row is cut into
+:func:`slices_per_row` slices, one block per slice and row in every pass.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from faster_rcnn_tpu_torch import _build
 from faster_rcnn_tpu_torch.ops.sort import topk_sorted_plain
 
-MAX_SORTED = 16384  # pairs the kernel's shared-memory bitonic sort holds
+MAX_SORTED = 16384  # pairs of one row the kernel's merge holds in shared memory
+MIN_SLICE = 1024    # keys a slice holds at least
 
 
-def _next_pow2(n: int) -> int:
-    p = 1
-    while p < n:
-        p *= 2
-    return p
+def slices_per_row(b: int, n: int, sms: int) -> int:
+    """Slices each of ``b`` rows of ``n`` scores is cut into: enough for the
+    b * slices blocks of a pass to reach twice the card's ``sms`` SMs, and
+    none shorter than MIN_SLICE keys."""
+    return max(1, min(-(-2 * sms // b), n // MIN_SLICE))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def topk_sorted(scores: torch.Tensor, k: int):
@@ -39,15 +48,20 @@ def topk_sorted(scores: torch.Tensor, k: int):
     if not scores.is_contiguous():
         raise ValueError("topk_sorted wants contiguous scores")
     b, n = scores.shape
-    pad = _next_pow2(k)
-    if pad > MAX_SORTED or n >= 2 ** 31:
+    if k > MAX_SORTED or n >= 2 ** 31:
         raise ValueError(f"topk_sorted: k={k} over {MAX_SORTED} or n={n} too large")
     vals = torch.empty((b, k), dtype=torch.float32, device=scores.device)
     idx = torch.empty((b, k), dtype=torch.int64, device=scores.device)
     if b == 0 or k == 0:
         return vals, idx
-    err = _build.lib().frcnn_topk_f32(scores.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                                      b, n, k, pad, _build.stream_ptr(scores))
+    lib = _build.lib()
+    s = slices_per_row(b, n, _sm_count(scores.device.index))
+    # Scratch of the launches below; freed on return, the caching allocator
+    # hands it only to work queued after them on this stream.
+    work = torch.empty(lib.frcnn_topk_work_bytes(b, s, k), dtype=torch.uint8,
+                       device=scores.device)
+    err = lib.frcnn_topk_f32(scores.data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                             work.data_ptr(), b, n, k, s, _build.stream_ptr(scores))
     _build.check(err, "topk")
     _build.count_launch("topk")
     return vals, idx

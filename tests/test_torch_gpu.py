@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import topk_adversarial
 from faster_rcnn_tpu_torch import _build
 from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda, sort, sort_cuda
 
@@ -82,23 +83,39 @@ def test_nms_kernel_bit_exact(cuda, n, n_valid, tile, iou, enough, scale):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("k", [128, 256, 6000, 8000])
-def test_topk_kernel_bit_exact(cuda, k):
-    """The train step's and the detect call's shapes: 16 rows of 64,296
-    scores with -1e30 masks, tie plateaus and signed zeros."""
-    rng = np.random.RandomState(k)
-    x = rng.uniform(size=(16, 64296)).astype(np.float32)
-    x[rng.uniform(size=x.shape) < 0.3] = -1e30
-    x[1, rng.randint(0, 64296, 3000)] = 0.5
-    x[2, :5000] = -0.0
-    x[2, 5000:9000] = 0.0
-    x[3] = -1e30
-    x[4, 64000:] = np.inf
-    scores = torch.tensor(x, device=cuda)
+def _topk_same_bits(scores, k):
     v, i = sort_cuda.topk_sorted(scores, k)
     pv, pi = sort.topk_sorted_plain(scores, k)
     assert torch.equal(i, pi)
     assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
+    return v, i
+
+
+@pytest.mark.parametrize("b,n,k", [
+    (16, 64296, 128), (16, 64296, 256), (16, 64296, 6000), (16, 64296, 8000),  # the paths
+    (16, 64296, 6001), (16, 64296, 1), (16, 64296, 1024), (16, 64296, 1025),
+    (1, 64296, 8000), (1, 64296, 128), (3, 16384, 16384), (9, 5000, 4999), (9, 700, 300),
+])
+def test_topk_kernel_bit_exact(cuda, b, n, k):
+    """The train step's and the detect call's shapes, and the edges: k = 1,
+    k = N, k not a power of two, one or two chunks, B = 1 (62 slices a row),
+    N below a slice; every row of chip_smoke.topk_adversarial (masks,
+    plateaus holding the k-th key over every slice boundary, signed zeros,
+    +inf, an all-NaN row, NaN of both signs)."""
+    x = topk_adversarial(k, max(b, 9), n, seed=k)[-b:]  # B < 9 takes the plateau rows
+    _topk_same_bits(torch.tensor(x, device=cuda), k)
+
+
+def test_topk_kernel_repeats_bit_for_bit(cuda):
+    """200 runs of the detect shape give the same bits: a missed fence or a
+    ticket read too early between the blocks of a row shows as a rare wrong
+    bin."""
+    scores = torch.tensor(topk_adversarial(8000), device=cuda)
+    v0, i0 = _topk_same_bits(scores, 8000)
+    for _ in range(200):
+        v, i = sort_cuda.topk_sorted(scores, 8000)
+        assert torch.equal(i, i0)
+        assert torch.equal(v.view(torch.int32), v0.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
