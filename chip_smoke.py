@@ -191,13 +191,30 @@ def _log_case(name, c, what) -> None:
         f"bound {c['bound_ms']:.6f} ms ({c['bound_by']})")
 
 
+def conv1_integer_mismatches(shape, dev, seed: int = 0) -> int:
+    """Bits in which K2 and its plain version differ on bf16 integer inputs
+    in [-8, 8] and weights in [-4, 4] of the given shape: every product and
+    sum is exact in f32, so the two must agree bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(-8, 9, shape, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randint(-4, 5, (7, 7, 3, 64), generator=g, device=dev).to(torch.bfloat16)
+    with uncounted():
+        got = conv1_cuda.conv1(x, w)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = conv1_cuda.conv1_plain(x, w)
+    return int((got.view(torch.int16) != want.view(torch.int16)).sum())
+
+
 def check_conv1(label, x, wt) -> dict:
+    """The captured inputs within 1e-2 of max|ref|, and the integer case of
+    the same shape bit for bit."""
     with uncounted():
         got = conv1_cuda.conv1(x, wt)
         want = conv1_cuda.conv1_plain(x, wt)
         torch.cuda.synchronize()
         err, ref = _rel_err(got, want)
         ms = time_ms(lambda: conv1_cuda.conv1(x, wt), 20)
+    int_bad = conv1_integer_mismatches(tuple(x.shape), x.device)
     plain = time_ms(lambda: conv1_cuda.conv1_plain(x, wt), 3, warmup=1)
     # cuDNN on the same work: bf16, channels_last, the input padded beforehand
     xp = torch.nn.functional.pad(x.permute(0, 3, 1, 2), (2, 3, 2, 3)).contiguous(
@@ -205,9 +222,10 @@ def check_conv1(label, x, wt) -> dict:
     w_oihw = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     library = time_ms(lambda: torch.nn.functional.conv2d(xp, w_oihw, stride=2), 20)
     nbytes = x.numel() * 2 + wt.numel() * 2 + got.numel() * 2
-    c = _case(label, err <= 1e-2 * ref, err, ms, plain, library, nbytes,
-              2.0 * got.numel() * 147, BF16_FLOPS, limit=1e-2 * ref)
-    _log_case("conv1", c, f"{tuple(x.shape)}->{tuple(got.shape)} {x.dtype}, limit 1e-2*max|ref|")
+    c = _case(label, err <= 1e-2 * ref and int_bad == 0, err, ms, plain, library, nbytes,
+              2.0 * got.numel() * 147, BF16_FLOPS, limit=1e-2 * ref, integer_mismatches=int_bad)
+    _log_case("conv1", c, f"{tuple(x.shape)}->{tuple(got.shape)} {x.dtype}, limit 1e-2*max|ref|"
+              f" {1e-2 * ref:.4g}; integer case mismatches={int_bad}")
     return c
 
 

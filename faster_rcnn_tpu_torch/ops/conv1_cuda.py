@@ -39,7 +39,10 @@ def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"conv1 wants bf16 or f32 x and w of one dtype, got {x.dtype}, {w.dtype}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("conv1 wants contiguous NHWC x and HWIO w")
-    out = torch.empty((b, h // 2, wd // 2, 64), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16 and x.data_ptr() % 4:
+        # the bf16 kernel stages x as 4-byte cp.async words
+        raise ValueError("conv1 wants a bf16 x whose data is 4-byte aligned")
+    out =torch.empty((b, h // 2, wd // 2, 64), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = _build.lib()

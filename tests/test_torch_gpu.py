@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import topk_adversarial
+from chip_smoke import conv1_integer_mismatches, topk_adversarial
 from faster_rcnn_tpu_torch import _build
 from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda, sort, sort_cuda
 
@@ -34,13 +34,50 @@ def _close(got, want, rel):
 
 @pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
 def test_conv1_kernel_matches_plain(cuda, dtype, rel):
+    """W/2 = 12, 100, 65 and 145 (not multiples of the 16-pixel tile; 145
+    spans two column blocks), H/2 = 17 (two row blocks, the second of one
+    row)."""
     rng = np.random.RandomState(0)
-    for b, h, w in [(2, 16, 24), (1, 64, 200), (2, 38, 130)]:
+    for b, h, w in [(2, 16, 24), (1, 64, 200), (2, 38, 130), (3, 34, 290)]:
         x = torch.tensor(rng.uniform(-100, 100, (b, h, w, 3)), dtype=dtype, device=cuda)
         k = torch.tensor(rng.standard_normal((7, 7, 3, 64)) * 0.1, dtype=dtype, device=cuda)
         got = conv1_cuda.conv1(x, k)
         assert got.shape == (b, h // 2, w // 2, 64) and got.dtype == dtype
         _close(got, conv1_cuda.conv1_plain(x, k), rel)
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 2, 74), (2, 16, 24), (3, 34, 290), (16, 608, 1504)])
+def test_conv1_bf16_kernel_bit_exact_on_integers(cuda, b, h, w):
+    """Integers in [-8, 8] times weights in [-4, 4]: every product and sum
+    is exact in f32 (|sum| <= 147 * 32), so the tensor cores' sums equal
+    the plain version's whatever their order, and round to the same bf16;
+    at H = 2 every tap row but three is padding; the last shape is the
+    paths' canvas."""
+    assert conv1_integer_mismatches((b, h, w, 3), cuda, seed=b + h + w) == 0
+
+
+def test_conv1_bf16_kernel_at_the_kitti_shape(cuda):
+    rng = np.random.RandomState(5)
+    x = torch.tensor(rng.uniform(-1, 1, (16, 608, 1504, 3)), dtype=torch.bfloat16, device=cuda)
+    k = torch.tensor(rng.standard_normal((7, 7, 3, 64)) * 0.1, dtype=torch.bfloat16, device=cuda)
+    _close(conv1_cuda.conv1(x, k), conv1_cuda.conv1_plain(x, k), 1e-2)
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_conv1_bf16_kernel_keeps_a_bad_pixel_in_its_windows(cuda, bad):
+    """One pixel (all 3 channels) at input column 19 = 2*7 + 5: the padding
+    taps kk 21..23 of output column 7 lie on it, so only their masking keeps
+    it out of that column. Outputs whose 7x7 window misses the pixel stay
+    finite and equal the plain version bit for bit (integer inputs)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randint(-8, 9, (2, 16, 40, 3), generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randint(-4, 5, (7, 7, 3, 64), generator=g, device=cuda).to(torch.bfloat16)
+    x[1, 9, 19] = bad
+    got, want = conv1_cuda.conv1(x, w), conv1_cuda.conv1_plain(x, w)
+    fin = torch.isfinite(want)
+    assert not fin.all() and fin[0].all()
+    assert torch.equal(torch.isfinite(got), fin)
+    assert torch.equal(got[fin].view(torch.int16), want[fin].view(torch.int16))
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
@@ -162,6 +199,10 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
     assert _build.LAUNCHES["conv1"] == before["conv1"] + 1
     with pytest.raises(TypeError):
         conv1_cuda.conv1(x.half(), torch.zeros(7, 7, 3, 64, dtype=torch.half, device=cuda))
+    flat = torch.zeros(1 + x.numel(), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):  # 2-byte offset: the kernel stages 4-byte words
+        conv1_cuda.conv1(flat[1:].view(x.shape),
+                         torch.zeros(7, 7, 3, 64, dtype=torch.bfloat16, device=cuda))
     with pytest.raises(TypeError):
         nms_cuda.nms_keep_mask(torch.zeros(1, 64, 4, dtype=torch.float64, device=cuda),
                                torch.ones(1, 64, dtype=torch.bool, device=cuda), 0.5, tile=64)
