@@ -11,7 +11,8 @@ Phases, each of which fails the run on any error:
      detection path and the joint train step; K4 also on topk_adversarial's
      rows at k = 8000 and 128. Each reports its time, the plain version's
      time, a PyTorch library call's time where one computes the same
-     function, and the bound from the H100's published peaks;
+     function, and the bound from the H100's published peaks; K3 also on
+     the proposals of a later train step, after the timed steps of phase 5;
   4. detect: full-width ResNet-50 KITTI detection (608x1504 canvases, B=16,
      seeded random weights) through make_detect_fn, with the launch count of
      every kernel over the timed batches, a torch.profiler table of one
@@ -319,8 +320,12 @@ def nms_pairs(keep: np.ndarray, valid: np.ndarray, tile: int, enough: int):
 
 
 def check_nms(label, args, kw) -> dict:
+    """Bit for bit against the plain version, the tail included; the bound
+    counts the IoU pairs of the phases these inputs need; the launch shape
+    gives K3's cluster size and how many clusters the card runs at once."""
     boxes, valid, iou = args
     tile, enough = kw["tile"], kw["enough"]
+    shape = nms_cuda.launch_shape(boxes, tile, enough)
     run = lambda: nms_cuda.nms_keep_mask(boxes, valid, iou, tile=tile, enough=enough)  # noqa: E731
     with uncounted():
         got = run()
@@ -335,10 +340,25 @@ def check_nms(label, args, kw) -> dict:
     nbytes = boxes.numel() * 4 + valid.numel() + got.numel()
     c = _case(label, mismatches == 0, float(mismatches), ms, plain, None, nbytes,
               IOU_OPS * pairs, F32_FLOPS, shape=list(boxes.shape), pairs=pairs,
-              tile_phases=phases, kept=keep_np.sum(1).tolist())
+              tile_phases=phases, kept=keep_np.sum(1).tolist(), launch=shape)
     _log_case("nms", c, f"{tuple(boxes.shape)} tile {tile} iou {iou} enough {enough}: "
               f"mismatches={mismatches}, valid/img {valid_np.sum(1).tolist()}, IoU pairs={pairs}, "
-              f"tile phases/img {phases}")
+              f"tile phases/img {phases}; clusters of {shape['cluster']} blocks, "
+              f"{shape['smem_bytes']} B shared each, at most {shape['max_active_clusters']} "
+              f"clusters at once: {shape['waves']} wave(s) of {boxes.shape[0]}")
+    return c
+
+
+def check_nms_later_step(run) -> dict:
+    """K3 on the proposals of a later train step, captured after every
+    other step of the run (more survivors per tile as the weights move)."""
+    step = run.opt.count + 1
+    calls, _ = run.capture()
+    (args, kw), = calls["nms"]
+    del calls
+    c = check_nms(f"train proposal NMS, step {step}", args, kw)
+    if not c["ok"]:
+        raise RuntimeError(f"K3 disagrees with its plain version: {c['case']}")
     return c
 
 
@@ -420,10 +440,10 @@ def check_kernels(calls: dict, path: str) -> dict:
 
 
 def kernel_entries(train_cases: dict, detect_cases: dict, train_launches: dict,
-                   detect_launches: dict, topk_adversarial_cases: list) -> list:
+                   detect_launches: dict, topk_adversarial_cases: list, nms_later: dict) -> list:
     """The kernels line: per kernel the sums over one train step's launches
     (this slice's path) and, under "detect", over one detect call's; K4 also
-    lists its adversarial cases."""
+    lists its adversarial cases, K3 its case on a later train step."""
     def total(cases):
         if not cases:
             return None
@@ -445,6 +465,9 @@ def kernel_entries(train_cases: dict, detect_cases: dict, train_launches: dict,
             entry["adversarial"] = [{key: c[key] for key in ("case", "ms", "library_ms",
                                                               "max_abs_err")}
                                     for c in topk_adversarial_cases]
+        if name == "nms":
+            entry["later_step"] = {key: nms_later[key] for key in (
+                "case", "ms", "plain_ms", "bound_ms", "max_abs_err", "tile_phases", "launch")}
         out.append(entry)
     return out
 
@@ -900,6 +923,7 @@ def main() -> int:
     train_cases = check_kernels(calls, "train")
     del calls
     tr = phase_train(train, first)
+    nms_later = check_nms_later_step(train)
     del train
     torch.cuda.empty_cache()
 
@@ -910,12 +934,12 @@ def main() -> int:
     per_call = {k: v / BATCHES for k, v in det["launches"].items()}
     log(f"[launches] per train step {per_step}; per detect call {per_call}")
     kernels = kernel_entries(train_cases, detect_cases, tr["launches"], det["launches"],
-                             adversarial)
+                             adversarial, nms_later)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels,
                    "cases": {"train": train_cases, "detect": detect_cases,
-                             "topk_adversarial": adversarial},
+                             "topk_adversarial": adversarial, "nms_later_step": nms_later},
                    "detect": det, "train": tr, "whole_path": whole}, f, indent=1)
     log(card["smi"])
     log(json.dumps({"kernels": kernels}))

@@ -8,8 +8,10 @@ by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one is reused. Nothing is compiled when the package is imported:
 the first kernel launch builds.
 
-Each wrapper counts its launches in :data:`LAUNCHES`, so a run can show
-that the main path went through the kernels.
+Every wrapper reaches the library through :func:`launch` (and the size
+queries through :func:`query`), which call it on the tensor's own device;
+each launch is counted in :data:`LAUNCHES`, so a run can show that the main
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -46,8 +48,9 @@ _SIGNATURES = {
     "frcnn_roi_align_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "frcnn_roi_align_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "frcnn_roi_align_bwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "frcnn_nms_keep_mask": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
-    "frcnn_nms_smem_bytes": [_I, _I],
+    "frcnn_nms_keep_mask": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
+    "frcnn_nms_smem_bytes": [_I, _I, _I, _I],
+    "frcnn_nms_max_active_clusters": [_I, _I, _I, _I],
     "frcnn_topk_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "frcnn_topk_work_bytes": [_I, _I, _I],
     "frcnn_cuda_error_string": [_I],
@@ -60,10 +63,6 @@ _RESTYPES = {"frcnn_nms_smem_bytes": ctypes.c_size_t,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -136,15 +135,31 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def check(err: int, kernel: str) -> None:
+def check(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
         msg = lib().frcnn_cuda_error_string(err).decode()
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
-def stream_ptr(t) -> int:
-    """PyTorch's current stream on ``t``'s device, as an integer handle."""
+def launch(kernel: str, entry: str, t, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` and PyTorch's current
+    stream on ``t``'s device, with that device current (the entry points set
+    attributes and launch on the current device); raise if it reports a CUDA
+    error, and count one launch of ``kernel``. Every kernel launch of the
+    port goes through here."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    with torch.cuda.device(t.device):
+        err = getattr(lib(), entry)(*args, torch.cuda.current_stream(t.device).cuda_stream)
+    check(err, f"{kernel} kernel launch")
+    LAUNCHES[kernel] += 1
+
+
+def query(entry: str, device, *args):
+    """The result of the C entry point ``entry``, which launches nothing (a
+    size or an occupancy), called with CUDA ``device`` current."""
+    import torch
+
+    with torch.cuda.device(device):
+        return getattr(lib(), entry)(*args)

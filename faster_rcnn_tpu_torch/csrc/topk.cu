@@ -383,13 +383,10 @@ extern "C" int frcnn_topk_f32(const void* scores, void* vals, void* idx, void* w
                                             chunks == 1);
   TOPK_CHECK();
   if (chunks > 1) {
-    static bool smem_set = false;  // the merge's shared memory: up to 128 KB
-    if (!smem_set) {
-      err = cudaFuncSetAttribute(topk_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 MAX_K * (int)sizeof(u64));
-      if (err != cudaSuccess) return (int)err;
-      smem_set = true;
-    }
+    // the merge's shared memory, up to 128 KB; an attribute of the current device
+    err = cudaFuncSetAttribute(topk_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MAX_K * (int)sizeof(u64));
+    if (err != cudaSuccess) return (int)err;
     topk_merge<<<cgrid, CHUNK, (size_t)K * sizeof(u64), st>>>(x, w.pairs, (float*)vals,
                                                                (int64_t*)idx, N, K);
     TOPK_CHECK();

@@ -42,14 +42,11 @@ def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.bfloat16 and x.data_ptr() % 4:
         # the bf16 kernel stages x as 4-byte cp.async words
         raise ValueError("conv1 wants a bf16 x whose data is 4-byte aligned")
-    out =torch.empty((b, h // 2, wd // 2, 64), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, h // 2, wd // 2, 64), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    lib = _build.lib()
-    err = getattr(lib, _ENTRY[x.dtype])(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd,
-                                        _build.stream_ptr(x))
-    _build.check(err, "conv1")
-    _build.count_launch("conv1")
+    _build.launch("conv1", _ENTRY[x.dtype], x, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                  b, h, wd)
     return out
 
 

@@ -60,11 +60,8 @@ def _forward(features: torch.Tensor, rois: torch.Tensor, pool_size: int) -> torc
                       device=features.device)
     if out.numel() == 0:
         return out
-    err = getattr(_build.lib(), _ENTRY[features.dtype])(
-        features.data_ptr(), rois.data_ptr(), out.data_ptr(), b, h, w, c, r, pool_size,
-        _build.stream_ptr(features))
-    _build.check(err, "roi_align")
-    _build.count_launch("roi_align")
+    _build.launch("roi_align", _ENTRY[features.dtype], features, features.data_ptr(),
+                  rois.data_ptr(), out.data_ptr(), b, h, w, c, r, pool_size)
     return out
 
 
@@ -87,11 +84,8 @@ def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, feature_shape,
     # the f32 accumulator: the result itself in f32, a scratch copy in bf16
     acc = dfeat if grad.dtype == torch.float32 else torch.empty(
         tuple(feature_shape), dtype=torch.float32, device=grad.device)
-    err = getattr(_build.lib(), _ENTRY_BWD[grad.dtype])(
-        grad.data_ptr(), rois.data_ptr(), acc.data_ptr(), dfeat.data_ptr(), b, h, w, c, r,
-        pool_size, _build.stream_ptr(grad))
-    _build.check(err, "roi_align_bwd")
-    _build.count_launch("roi_align_bwd")
+    _build.launch("roi_align_bwd", _ENTRY_BWD[grad.dtype], grad, grad.data_ptr(), rois.data_ptr(),
+                  acc.data_ptr(), dfeat.data_ptr(), b, h, w, c, r, pool_size)
     return dfeat
 
 

@@ -54,14 +54,11 @@ def topk_sorted(scores: torch.Tensor, k: int):
     idx = torch.empty((b, k), dtype=torch.int64, device=scores.device)
     if b == 0 or k == 0:
         return vals, idx
-    lib = _build.lib()
     s = slices_per_row(b, n, _sm_count(scores.device.index))
     # Scratch of the launches below; freed on return, the caching allocator
     # hands it only to work queued after them on this stream.
-    work = torch.empty(lib.frcnn_topk_work_bytes(b, s, k), dtype=torch.uint8,
-                       device=scores.device)
-    err = lib.frcnn_topk_f32(scores.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                             work.data_ptr(), b, n, k, s, _build.stream_ptr(scores))
-    _build.check(err, "topk")
-    _build.count_launch("topk")
+    work = torch.empty(_build.query("frcnn_topk_work_bytes", scores.device, b, s, k),
+                       dtype=torch.uint8, device=scores.device)
+    _build.launch("topk", "frcnn_topk_f32", scores, scores.data_ptr(), vals.data_ptr(),
+                  idx.data_ptr(), work.data_ptr(), b, n, k, s)
     return vals, idx

@@ -78,7 +78,10 @@ class FreezeAwareOptimizer:
     zero, so the first step is ``trace = g``, as torch's SGD buffer starts)
     or Adam (b1 0.9, b2 0.999, eps 1e-8, bias-corrected) step. ``lr`` is a
     number or a function of the step count, which starts at 0. Frozen
-    parameters get no update and no optimizer state.
+    parameters get no update and no optimizer state. The state is created
+    at the first ``step()``, on each parameter's device then, so the model
+    may move (``make_joint_train_step`` moves it) after the optimizer is
+    built, as with ``torch.optim``.
     """
 
     def __init__(self, model: nn.Module, network: str, freeze_blocks: Sequence[int],
@@ -99,10 +102,7 @@ class FreezeAwareOptimizer:
         self.kind, self.momentum = optimizer, momentum
         self.weight_decay, self.clip = weight_decay, clip_grad_norm
         self.count = 0
-        self.state: Dict[str, Dict[str, torch.Tensor]] = {
-            name: ({"trace": torch.zeros_like(p)} if optimizer == "sgd"
-                   else {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)})
-            for name, p, _ in self.params}
+        self.state: Dict[str, Dict[str, torch.Tensor]] = {}
 
     def zero_grad(self) -> None:
         for _, p, _ in self.params:
@@ -120,6 +120,9 @@ class FreezeAwareOptimizer:
             grads = [torch.where(keep, g, g / norm * self.clip) for g in grads]
         step_size = -float(self.lr(self.count))
         for g, (name, p, _) in zip(grads, self.params):
+            if name not in self.state:  # zeros, as optax's init, on p's device now
+                self.state[name] = ({"trace": torch.zeros_like(p)} if self.kind == "sgd"
+                                    else {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)})
             st = self.state[name]
             if self.kind == "sgd":
                 st["trace"] = g + self.momentum * st["trace"]

@@ -15,6 +15,7 @@ import torch
 from chip_smoke import conv1_integer_mismatches, topk_adversarial
 from faster_rcnn_tpu_torch import _build
 from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda, sort, sort_cuda
+from faster_rcnn_tpu_torch.parallel.freeze import make_optimizer
 
 pytestmark = pytest.mark.gpu
 
@@ -97,27 +98,81 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, rel):
     assert torch.equal(got[0, 0], feat[0, 3, 4].expand(7, 7, c))
 
 
-@pytest.mark.parametrize("n,n_valid,tile,iou,enough,scale", [
-    (8192, 8000, 512, 0.7, 300, 1.0),
-    (384, 300, 128, 0.5, 300, 16.0),
-    (1024, 700, 256, 0.5, 0, 1.0),
-    (256, 0, 64, 0.5, 10, 1.0),
-])
-def test_nms_kernel_bit_exact(cuda, n, n_valid, tile, iou, enough, scale):
-    rng = np.random.RandomState(2)
-    b = 3
-    centers = rng.uniform(0, 90, (b, 30, 2))
-    c = np.take_along_axis(centers, rng.randint(0, 30, (b, n, 1)), 1) + rng.normal(0, 3, (b, n, 2))
-    wh = rng.uniform(2, 30, (b, n, 2))
-    boxes = np.round(np.concatenate([c - wh / 2, c + wh / 2], -1)) * scale
-    boxes += rng.randint(0, 9, (b, n, 1)) * 16384.0 * (scale > 1)
+def nms_case(kind: str, b: int, n: int, n_valid: int, seed: int = 2):
+    """Seeded (b, n, 4) f32 boxes in score order and (b, n) bool valid
+    (the first n_valid of each image) for K3:
+      "clustered": integer boxes 2-30 px wide around 30 centres in 90x90 px,
+        long suppression chains;
+      "class_offset": the same scaled 16x and shifted by class * 16384, as
+        the final class-offset NMS sees them;
+      "identical": one box repeated, so the first suppresses all others;
+      "disjoint": a grid of 6x6 px boxes 10 px apart, so every box survives;
+      "nan": clustered, with one coordinate of every fifth box NaN in image
+        0 and every coordinate of every third box NaN in image 1."""
+    rng = np.random.RandomState(seed)
+    if kind in ("clustered", "class_offset", "nan"):
+        centers = rng.uniform(0, 90, (b, 30, 2))
+        c = (np.take_along_axis(centers, rng.randint(0, 30, (b, n, 1)), 1)
+             + rng.normal(0, 3, (b, n, 2)))
+        wh = rng.uniform(2, 30, (b, n, 2))
+        boxes = np.round(np.concatenate([c - wh / 2, c + wh / 2], -1))
+        if kind == "class_offset":
+            boxes = boxes * 16.0 + rng.randint(0, 9, (b, n, 1)) * 16384.0
+        if kind == "nan":
+            rows = np.arange(0, n, 5)
+            boxes[0, rows, rows % 4] = np.nan
+            boxes[1, ::3] = np.nan
+    elif kind == "identical":
+        boxes = np.broadcast_to(np.array([10.0, 20.0, 50.0, 45.0]), (b, n, 4)).copy()
+    elif kind == "disjoint":
+        i = np.arange(n)
+        x, y = (i % 128) * 10.0, (i // 128) * 10.0
+        boxes = np.broadcast_to(np.stack([x, y, x + 5, y + 5], -1), (b, n, 4)).copy()
+    else:
+        raise ValueError(kind)
     valid = np.zeros((b, n), bool)
     valid[:, :n_valid] = True
-    bx = torch.tensor(boxes.astype(np.float32), device=cuda)
+    return boxes.astype(np.float32), valid
+
+
+@pytest.mark.parametrize("kind,b,n,n_valid,tile,iou,enough", [
+    ("clustered", 3, 8192, 8000, 512, 0.7, 300),     # the detect call's proposals
+    ("class_offset", 3, 384, 300, 128, 0.5, 300),   # its final NMS
+    ("clustered", 3, 1024, 700, 256, 0.5, 0),
+    ("clustered", 3, 256, 0, 64, 0.5, 10),
+    ("clustered", 16, 6144, 6000, 512, 0.7, 2000),  # the train step's proposals
+    ("clustered", 33, 6144, 6000, 512, 0.7, 2000),  # clusters of 3
+    ("clustered", 140, 1024, 1000, 256, 0.7, 300),  # more images than SMs: two waves
+    ("identical", 4, 2048, 2048, 512, 0.7, 300),
+    ("disjoint", 4, 2048, 2048, 256, 0.7, 0),
+    ("nan", 4, 2048, 1900, 512, 0.7, 0),
+    ("clustered", 4, 2048, 2000, 256, 0.0, 0),      # thresh 0: no divide is skipped wrongly
+    ("clustered", 4, 1024, 1000, 32, 0.5, 300),
+    ("clustered", 2, 4096, 4000, 1024, 0.7, 0),
+])
+def test_nms_kernel_bit_exact(cuda, kind, b, n, n_valid, tile, iou, enough):
+    """The whole mask, the tail after the stopping tile included."""
+    boxes, valid = nms_case(kind, b, n, n_valid)
+    bx = torch.tensor(boxes, device=cuda)
     vd = torch.tensor(valid, device=cuda)
     got = nms_cuda.nms_keep_mask(bx, vd, iou, tile=tile, enough=enough)
     want = nms.nms_sorted_mask_blocked(bx, vd, iou, tile=tile, enough=enough)
     assert torch.equal(got, want)
+    if kind == "disjoint":
+        assert bool(got.all())
+    if kind == "identical":
+        assert got.sum(1).tolist() == [1] * b
+
+
+def test_nms_kernel_repeats_bit_for_bit(cuda):
+    """50 runs at the train shape give the same bits: a missed cluster
+    barrier between the blocks' writes and the walk shows as a rare
+    difference."""
+    boxes, valid = nms_case("clustered", 16, 6144, 6000)
+    bx, vd = torch.tensor(boxes, device=cuda), torch.tensor(valid, device=cuda)
+    first = nms_cuda.nms_keep_mask(bx, vd, 0.7, tile=512, enough=2000)
+    for _ in range(50):
+        assert torch.equal(nms_cuda.nms_keep_mask(bx, vd, 0.7, tile=512, enough=2000), first)
 
 
 def _topk_same_bits(scores, k):
@@ -178,6 +233,32 @@ def test_roi_align_backward_kernel_matches_plain(cuda, dtype, rel):
                         requires_grad=True)
     roi_align_cuda.roi_align(feat, rois, 7).backward(g)
     _close(feat.grad, want, rel)
+
+
+@pytest.mark.parametrize("kind", ["sgd", "adam"])
+def test_optimizer_built_over_a_cpu_model_steps_on_cuda(cuda, kind):
+    """The optimizer's state is made at its first step on the parameters'
+    device: a model moved to the card after the optimizer was built (as
+    make_joint_train_step moves it) takes two steps there, equal to the
+    same steps on the CPU to f32 rounding."""
+    def build():
+        torch.manual_seed(0)
+        m = torch.nn.Sequential(torch.nn.Linear(8, 4), torch.nn.Linear(4, 2))
+        return m, make_optimizer(m, "resnet50", (), 0.1, optimizer=kind, weight_decay=1e-4,
+                                 clip_grad_norm=1.0)
+    ref, ref_opt = build()
+    model, opt = build()
+    model.to(cuda)
+    rng = np.random.RandomState(0)
+    for _ in range(2):
+        for p, q in zip(ref.parameters(), model.parameters()):
+            g = rng.standard_normal(tuple(p.shape)).astype(np.float32)
+            p.grad, q.grad = torch.tensor(g), torch.tensor(g, device=cuda)
+        ref_opt.step()
+        opt.step()
+    assert all(t.is_cuda for st in opt.state.values() for t in st.values())
+    for p, q in zip(ref.parameters(), model.parameters()):
+        torch.testing.assert_close(q.detach().cpu(), p.detach(), rtol=1e-5, atol=1e-6)
 
 
 def test_conv1_backward_matches_plain(cuda):

@@ -345,6 +345,38 @@ def _imported_roots(path):
             yield node.module.split(".")[0]
 
 
+def _calls_an_entry_point(node):
+    """A call of a kernel library entry point: ``lib.frcnn_x(...)``,
+    ``lib().frcnn_x(...)`` or ``getattr(<library>, name)(...)``."""
+    f = node.func
+    return (isinstance(f, ast.Attribute) and f.attr.startswith("frcnn_")) or (
+        isinstance(f, ast.Call) and isinstance(f.func, ast.Name) and f.func.id == "getattr")
+
+
+def test_kernels_launch_only_through_the_device_guarded_helper():
+    """The wrappers (ops/*_cuda.py) never touch the kernel library: each
+    kernel launches through _build.launch, which calls its entry point with
+    the tensor's device current and that device's stream, checks the result
+    and counts the launch; sizes and occupancy come through _build.query.
+    In _build.py only those two (and check's error string) call an entry."""
+    launched = []
+    for path in sorted((REPO / "faster_rcnn_tpu_torch" / "ops").glob("*_cuda.py")):
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            where = (path.name, getattr(node, "lineno", None))
+            if isinstance(node, ast.Attribute):
+                assert node.attr != "lib" and not node.attr.startswith("frcnn_"), where
+            if isinstance(node, ast.Call):
+                assert not (isinstance(node.func, ast.Name) and node.func.id == "getattr"), where
+                if isinstance(node.func, ast.Attribute) and node.func.attr == "launch":
+                    launched.append(node.args[0].value)
+    assert sorted(launched) == sorted(_build.LAUNCHES)  # one launch site per kernel
+    tree = ast.parse((REPO / "faster_rcnn_tpu_torch" / "_build.py").read_text())
+    callers = {fn.name for fn in tree.body if isinstance(fn, ast.FunctionDef)
+               for node in ast.walk(fn)
+               if isinstance(node, ast.Call) and _calls_an_entry_point(node)}
+    assert callers == {"launch", "query", "check"}
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((REPO / "faster_rcnn_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15

@@ -428,6 +428,22 @@ class TestFreeze:
         assert got == {n: want[names[n]] for n in got}
 
     @pytest.mark.parametrize("kind", ["sgd", "adam"])
+    def test_optimizer_state_is_created_at_the_first_step(self, kind):
+        """No state until the first step; then one entry per trainable
+        tensor, made like the parameter as it is then: a model converted
+        after the optimizer was built (here to f64; to the card in
+        make_joint_train_step) keeps working."""
+        model = torch.nn.Sequential(torch.nn.Linear(8, 4), torch.nn.Linear(4, 2))
+        opt = tfreeze.make_optimizer(model, "resnet50", (), 0.1, optimizer=kind)
+        assert opt.state == {}
+        model.double()
+        for p in model.parameters():
+            p.grad = torch.ones_like(p)
+        opt.step()
+        assert set(opt.state) == {n for n, _ in model.named_parameters()}
+        assert all(t.dtype == torch.float64 for st in opt.state.values() for t in st.values())
+
+    @pytest.mark.parametrize("kind", ["sgd", "adam"])
     def test_optimizer_matches_optax(self, r50, rng, kind):
         """Weight decay before the clip, both over the trainable leaves only,
         then SGD (optax's trace starts at zero, so its first step is
