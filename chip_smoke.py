@@ -50,6 +50,7 @@ from faster_rcnn_tpu_torch.models import resnet
 from faster_rcnn_tpu_torch.models.detector import FasterRCNN, init_model
 from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda, sort, sort_cuda
 from faster_rcnn_tpu_torch.ops import proposals as prop_ops
+from faster_rcnn_tpu_torch.ops.roi_align_taps import roi_axes, row_hits, tap_counts
 from faster_rcnn_tpu_torch.parallel.freeze import make_optimizer
 from faster_rcnn_tpu_torch.train import pipeline
 
@@ -230,31 +231,14 @@ def check_conv1(label, x, wt) -> dict:
     return c
 
 
-def _taps(starts, crops, p: int, limit: int) -> list:
-    """Per ROI, the map rows (or columns) its P output cells weigh with a
-    nonzero weight: the kernel's tap arithmetic in f32 (the upper tap only
-    where its fraction is above zero)."""
-    src = np.arange(p, dtype=np.float32)[None] * (crops[:, None] / np.float32(p))
-    lo = np.floor(src)
-    hi = np.minimum(lo + 1, crops[:, None] - 1)
-    lo_abs = np.clip(lo + starts[:, None], 0, limit - 1).astype(np.int64)
-    hi_abs = np.clip(hi + starts[:, None], 0, limit - 1).astype(np.int64)
-    return [np.unique(np.concatenate([a, b[f > 0]]))
-            for a, b, f in zip(lo_abs, hi_abs, src - lo)]
-
-
 def touched_pixels(rois: torch.Tensor, h: int, w: int, p: int) -> int:
     """Map pixels that RoI align must read for these ROIs (the union over
     each image's ROIs): its bound counts these bytes, since the work
     depends on the ROIs."""
-    total = 0
-    for img in rois.cpu().numpy().astype(np.float32):
-        mask = np.zeros((h, w), bool)
-        for y, x in zip(_taps(img[:, 1], img[:, 3] - img[:, 1], p, h),
-                        _taps(img[:, 0], img[:, 2] - img[:, 0], p, w)):
-            mask[np.ix_(y, x)] = True
-        total += int(mask.sum())
-    return total
+    rows, cols = roi_axes(rois)
+    hit = np.einsum("bry,brx->byx", tap_counts(*rows, p, h) > 0, tap_counts(*cols, p, w) > 0,
+                    dtype=np.int64)
+    return int((hit > 0).sum())
 
 
 def check_roi_align(label, feat, rois, p) -> dict:
@@ -275,30 +259,53 @@ def check_roi_align(label, feat, rois, p) -> dict:
     return c
 
 
+def _bits_differing(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Values of two bf16 or f32 tensors whose bits differ."""
+    as_int = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(as_int) != b.view(as_int)).sum())
+
+
+def hits_summary(hits: np.ndarray) -> dict:
+    return {"mean": float(hits.mean()), "p50": float(np.percentile(hits, 50)),
+            "p90": float(np.percentile(hits, 90)), "p99": float(np.percentile(hits, 99)),
+            "max": int(hits.max()), "zero_rows": int((hits == 0).sum()), "rows": int(hits.size)}
+
+
 def check_roi_align_bwd(label, grad, rois, shape, p) -> dict:
-    """The scatter kernel against autograd of the plain gather form, in the
-    path's dtype (limit 1e-2 of max|ref|: the atomics and the plain
-    scatter sum in different orders, and then one bf16 rounding) and in f32
-    (limit 1e-5 of max|ref|: only the order of the f32 sums differs)."""
+    """The gather kernel against autograd of the plain gather form, in the
+    path's dtype (limit 1e-2 of max|ref|: the two sum in different orders,
+    and then one bf16 rounding) and in f32 (limit 1e-5 of max|ref|: only the
+    order of the f32 sums differs). The kernel sums in a fixed order, so two
+    calls give the same bits, and its bf16 result is its f32 result on the
+    same values rounded once: both are checked bit for bit."""
     with uncounted():
         got = roi_align_cuda.roi_align_backward(grad, rois, shape, p)
+        again = roi_align_cuda.roi_align_backward(grad, rois, shape, p)
         want = roi_align_cuda.roi_align_backward_plain(grad, rois, shape, grad.dtype, p)
         torch.cuda.synchronize()
         err, ref = _rel_err(got, want)
+        repeat_bits = _bits_differing(got, again)
+        del again, want
         g32 = grad.float()
-        err32, ref32 = _rel_err(roi_align_cuda.roi_align_backward(g32, rois, shape, p),
-                                roi_align_cuda.roi_align_backward_plain(g32, rois, shape,
-                                                                        torch.float32, p))
-        del g32
+        got32 = roi_align_cuda.roi_align_backward(g32, rois, shape, p)
+        err32, ref32 = _rel_err(got32, roi_align_cuda.roi_align_backward_plain(
+            g32, rois, shape, torch.float32, p))
+        rounding_bits = _bits_differing(got, got32.to(got.dtype))
+        del g32, got32
         ms = time_ms(lambda: roi_align_cuda.roi_align_backward(grad, rois, shape, p), 10)
     plain = time_ms(lambda: roi_align_cuda.roi_align_backward_plain(grad, rois, shape,
                                                                     grad.dtype, p), 2, warmup=1)
+    hits = row_hits(rois, shape[1], p)
     nbytes = grad.numel() * 2 + rois.numel() * 4 + got.numel() * 2
-    ok = err <= 1e-2 * ref and err32 <= 1e-5 * ref32
+    ok = err <= 1e-2 * ref and err32 <= 1e-5 * ref32 and repeat_bits == 0 and rounding_bits == 0
     c = _case(label, ok, err, ms, plain, None, nbytes, SCATTER_OPS * grad.numel(), F32_FLOPS,
-              limit=1e-2 * ref, f32_err=err32, f32_limit=1e-5 * ref32)
+              limit=1e-2 * ref, f32_err=err32, f32_limit=1e-5 * ref32,
+              repeat_mismatches=repeat_bits, rounding_mismatches=rounding_bits,
+              hits_per_row=hits_summary(hits))
     _log_case("roi_align_bwd", c, f"{tuple(grad.shape)} -> {tuple(got.shape)} {grad.dtype}, "
-              f"f32 err {err32:.4g} (limit {1e-5 * ref32:.4g})")
+              f"f32 err {err32:.4g} (limit {1e-5 * ref32:.4g}); bits differing between two calls "
+              f"{repeat_bits}, from the f32 result rounded once {rounding_bits}; hits per row "
+              f"{c['hits_per_row']}")
     return c
 
 

@@ -46,8 +46,8 @@ _SIGNATURES = {
     "frcnn_conv1_f32": [_P, _P, _P, _I, _I, _I, _P],
     "frcnn_roi_align_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "frcnn_roi_align_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "frcnn_roi_align_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "frcnn_roi_align_bwd_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "frcnn_roi_align_bwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "frcnn_roi_align_bwd_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "frcnn_nms_keep_mask": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _I, _I, _P],
     "frcnn_nms_smem_bytes": [_I, _I, _I, _I],
     "frcnn_nms_max_active_clusters": [_I, _I, _I, _I],

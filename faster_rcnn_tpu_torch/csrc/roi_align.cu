@@ -23,6 +23,8 @@
 // The tap arithmetic repeats faster_rcnn_tpu/ops/roi_align.py _tap_weights
 // and the gather form roi_align: crop/P first, then i*(crop/P), floor, the
 // crop-1 clamp of the upper tap, then the [0, limit-1] clamp.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -99,76 +101,445 @@ int launch(const void* feat, const void* rois, void* out, int B, int H, int W, i
 
 // Backward. What bounds it: at B=16, R=64 (the train step) it must read the
 // 102.8 MB bf16 cotangent and write the 117.0 MB bf16 gradient of the map,
-// 0.066 ms at 3.35 TB/s. The sampler draws ROIs with replacement, so ROIs
-// repeat and overlap and no block owns a part of the map: every tap is an
-// f32 atomic add into a zeroed f32 copy of the map, which one pass then
-// rounds to the feature dtype (the JAX VJP also sums in f32 and rounds
-// once). The f32 scratch and the atomics are this design's cost beyond the
-// bound; the order of the atomic adds varies from run to run, so the result
-// is not bit-deterministic. One block takes one output row i of one ROI, as
-// the forward does; its threads run along the channels, so each warp's
-// atomics land on 32 consecutive floats. A tap whose weight is zero is
-// skipped.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-roi_align_bwd_kernel(const T* __restrict__ grad, const float* __restrict__ rois,
-                     float* __restrict__ dfeat, int H, int W, int C, int R, int P) {
-  const int b = blockIdx.y;
-  const int r = blockIdx.x / P;
-  const int i = blockIdx.x % P;
-  const float* roi = rois + ((size_t)b * R + r) * 4;
-  const float x1 = roi[0], y1 = roi[1];
-  const float crop_w = roi[2] - x1, crop_h = roi[3] - y1;
-  const Taps ty = taps(i, y1, crop_h, P, H);
-  const float wy[2] = {1.f - ty.frac, ty.frac};
-  float* rows[2] = {dfeat + ((size_t)b * H + ty.lo) * W * C,
-                    dfeat + ((size_t)b * H + ty.hi) * W * C};
-  const T* gb = grad + ((((size_t)b * R + r) * P + i) * P) * C;
+// 0.066 ms at 3.35 TB/s.
+//
+// Design: owner computes. One block takes one map row y of one image b for
+// one chunk of 32 16-byte vectors of channels (256 bf16, 128 f32); a lane
+// owns one vector of each column it sums, in f32 registers, and writes that
+// pixel once, zeros included: no zeroed scratch, no atomics on the map, no
+// rounding pass; the map is written exactly once, rounded once from f32.
+// The block takes the image's ROIs in batches of RB (all of them at once
+// where they fit: the train step's 64 do), in r order, and runs steps 1-3
+// on each; a column's sum carries from batch to batch in shared memory.
+//   1. Hits. Each thread takes ROIs (in order, blockDim at a time): the row
+//      taps of cells 0 and P-1 bound those of all cells (both taps are
+//      monotone in i), so most ROIs stop there; the others store their P
+//      column taps (taps(), the forward's function) and find their cells i
+//      with a tap on row y: the lo tap (weight 1 - frac), the hi tap
+//      (weight frac, skipped at frac == 0), or both when lo == hi, one hit
+//      of weight (1 - frac) + frac, as the reference's tap-weight matrix
+//      sums them. A scan over the block writes the hits in (r, i) order.
+//   2. Entries. Each hit gives, for j from 0 to P-1, an entry on its lo
+//      column and one on its hi column (one entry of weight (1 - frac) +
+//      frac when they coincide; none for a zero weight), each a cotangent
+//      row (b, r, i, j) and the weight wy * wx (one f32 multiply). The
+//      block writes them in (r, i, j, lo/hi) order, then one warp sorts
+//      them stably by column (__match_any_sync, a cursor per column), so a
+//      column's entries lie together in that order. Columns whose entries
+//      do not fit the buffer at once go in later rounds (a round holds
+//      whole columns; one column never exceeds the buffer).
+//   3. Sums. Warps take columns (a counter in shared memory) and add their
+//      entries in order to the column's carried sum (0 in the first
+//      batch), BWD_INFLIGHT loads issued before the first add: acc += g *
+//      w, one f32 multiply and one f32 add each (__fmul_rn / __fadd_rn: no
+//      FMA, so the fixed order fixes every rounding and the result is the
+//      same bits on every run). ROIs cluster around the ground truth, so
+//      one column can hold a large share of a row's entries (458 of the
+//      train step's first input); a column with more than BWD_HEAVY entries
+//      in a batch and more than 1/BWD_WARPS of its row's in that batch is
+//      split: warp w sums the w-th of BWD_WARPS equal runs of its entries,
+//      the first run from the carried sum, and the runs' sums are added in
+//      run order. The last batch stores the columns, the others carry them.
+// A tap whose weight is zero (frac == 0: the hi tap; 1 - frac is never 0)
+// is skipped. That changes no finite sum; an inf or NaN in the cotangent
+// stays out of the zero-weight tap's pixel, where the plain version and the
+// JAX VJP would put 0 * inf = NaN.
+// Traffic: each cotangent row is read by the blocks of its two tap rows,
+// and in each of them for its two tap columns where they differ; the
+// blocks of one image run together (b is the slowest grid index), so the
+// reads after the first tend to hit L2. Shared memory (bwd_plan): 52 KB at
+// R = 64, P = 7, W = 94, four blocks an SM. Above BWD_ROI_BATCH ROIs (at P
+// = 7) an image takes several batches, and the carried sums need 1 KB a
+// column (bf16; 512 B in f32); where a row's do not fit beside the batch,
+// the row's columns are cut into tiles of XT, a block each.
+constexpr int BWD_WARPS = 8;           // warps of a block
+constexpr int BWD_INFLIGHT = 4;        // loads a lane issues before it adds them
+constexpr int BWD_HEAVY = 64;          // entries above which a column may be split
+constexpr int BWD_ROI_BATCH = 128;     // most ROIs a batch takes
+constexpr int BWD_BATCH_BYTES = 98304; // most shared memory a batch's ROIs take
+constexpr int BWD_SMEM_LIMIT = 232448; // shared memory an H100 block may have
 
-  for (int j = 0; j < P; ++j) {
-    const Taps tx = taps(j, x1, crop_w, P, W);
-    const float wx[2] = {1.f - tx.frac, tx.frac};
-    const int xs[2] = {tx.lo, tx.hi};
-    const T* g = gb + (size_t)j * C;
+struct ColTap {  // 8 bytes: the shared-memory layout below counts on it
+  short lo, hi;
+  float frac;
+};
+
+struct Entry {  // a cotangent row (b, r, i, j) and its weight
+  int row;
+  float w;
+};
+
+struct BwdPlan {
+  int rb, xt;   // ROIs a batch, columns a block
+  size_t smem;  // bytes of dynamic shared memory; 0: the shapes do not fit
+};
+
+// Shared memory: a batch's column taps and hits (RB P each), its entries
+// (at most RB P P: a row holds at most one hit per (r, i), and each j adds
+// at most one entry to a column), the split columns' run sums, the carried
+// sums of XT columns (with several batches), the per-column counts and
+// cursors, the entries' columns and sorted order (2 bytes each), and a
+// round's three lists of columns.
+inline BwdPlan bwd_plan(int R, int P, int W, int VN) {
+  const size_t per_roi = (size_t)P * 16 + (size_t)P * P * 12;
+  BwdPlan plan;
+  plan.rb = (int)std::min<size_t>(std::min(R, BWD_ROI_BATCH),
+                                  std::max<size_t>(1, BWD_BATCH_BYTES / per_roi));
+  plan.xt = W;
+  plan.smem = plan.rb * per_roi + (size_t)BWD_WARPS * 32 * 8 * sizeof(float) + (size_t)W * 14;
+  if (plan.rb < R) {
+    const size_t per_col = (size_t)32 * VN * sizeof(float);
+    const size_t limit = BWD_SMEM_LIMIT;
+    const size_t room = plan.smem < limit ? (limit - plan.smem) / per_col : 0;
+    plan.xt = (int)std::min<size_t>(W, room);
+    plan.smem += plan.xt * per_col;
+  }
+  if (plan.smem > (size_t)BWD_SMEM_LIMIT || plan.xt < 1) plan.smem = 0;
+  return plan;
+}
+
+// The entries a column tap gives: its lo column with weight (1 - frac), or
+// (1 - frac) + frac when hi == lo; its hi column with weight frac.
+__device__ __forceinline__ int col_entries(const ColTap& c, int* xs, float* wx) {
+  const float w_lo = 1.f - c.frac;
+  if (c.frac == 0.f) {
+    xs[0] = c.lo, wx[0] = w_lo;
+    return 1;
+  }
+  if (c.hi == c.lo) {
+    xs[0] = c.lo, wx[0] = __fadd_rn(w_lo, c.frac);
+    return 1;
+  }
+  xs[0] = c.lo, wx[0] = w_lo, xs[1] = c.hi, wx[1] = c.frac;
+  return 2;
+}
+
+// Exclusive scan of v over the block, in thread order; *total gets the sum.
+__device__ __forceinline__ int block_scan(int v, int* warp_sum, int* total) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int incl = v;
 #pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      if (wy[a] == 0.f) continue;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += n;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  int off = incl - v, sum = 0;
+  for (int w = 0; w < BWD_WARPS; ++w) {
+    off += w < warp ? warp_sum[w] : 0;
+    sum += warp_sum[w];
+  }
+  __syncthreads();  // warp_sum may be reused
+  *total = sum;
+  return off;
+}
+
+// acc += the entries order[a..b) in order; loads of BWD_INFLIGHT entries
+// are issued before their adds.
+template <typename T>
+__device__ __forceinline__ void sum_entries(float (&acc)[Vec16<T>::N], const Entry* entries,
+                                            const short* order, int a, int b, const uint4* gv,
+                                            int nvec, int v) {
+  const int lane = threadIdx.x & 31;
+  for (int e0 = a; e0 < b; e0 += BWD_INFLIGHT) {
+    Entry mine{0, 0.f};
+    if (lane < BWD_INFLIGHT && e0 + lane < b) mine = entries[order[e0 + lane]];
+    Vec16<T> in[BWD_INFLIGHT];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (wx[e] == 0.f) continue;
-        const float w = wy[a] * wx[e];
-        float* dst = rows[a] + (size_t)xs[e] * C;
-        for (int c = threadIdx.x; c < C; c += THREADS) atomicAdd(dst + c, to_f32(g[c]) * w);
-      }
+    for (int u = 0; u < BWD_INFLIGHT; ++u) {
+      const int row = __shfl_sync(0xffffffffu, mine.row, u);
+      if (e0 + u < b && v < nvec) in[u].raw = gv[(size_t)row * nvec + v];
+    }
+#pragma unroll
+    for (int u = 0; u < BWD_INFLIGHT; ++u) {
+      const float w = __shfl_sync(0xffffffffu, mine.w, u);
+      if (e0 + u < b)
+#pragma unroll
+        for (int e = 0; e < Vec16<T>::N; ++e)
+          acc[e] = __fadd_rn(acc[e], __fmul_rn(to_f32(in[u].v()[e]), w));
     }
   }
 }
 
-// f32 -> bf16, four values a thread a step (n is a multiple of 4).
-__global__ void f32_to_bf16_kernel(const float4* __restrict__ in, __nv_bfloat162* __restrict__ out,
-                                   size_t n4) {
-  for (size_t v = blockIdx.x * (size_t)blockDim.x + threadIdx.x; v < n4;
-       v += (size_t)gridDim.x * blockDim.x) {
-    const float4 f = in[v];
-    out[2 * v] = __floats2bfloat162_rn(f.x, f.y);
-    out[2 * v + 1] = __floats2bfloat162_rn(f.z, f.w);
+// A column's sum so far for vector l of the chunk: 0 in the first batch,
+// else what the batch before carried.
+template <int VN>
+__device__ __forceinline__ void carried(float (&acc)[VN], const float* carry, bool first, int xl,
+                                        int l) {
+#pragma unroll
+  for (int e = 0; e < VN; ++e) acc[e] = first ? 0.f : carry[(xl * 32 + l) * VN + e];
+}
+
+// The last batch writes the pixel (x, vector v = v0 + l), the others carry it.
+template <typename T>
+__device__ __forceinline__ void finish(T* dfeat, float* carry, bool last,
+                                       const float (&acc)[Vec16<T>::N], int b, int y, int x,
+                                       int xl, int l, int H, int W, int C, int nvec, int v) {
+  constexpr int VN = Vec16<T>::N;
+  if (!last) {
+#pragma unroll
+    for (int e = 0; e < VN; ++e) carry[(xl * 32 + l) * VN + e] = acc[e];
+    return;
+  }
+  if (v >= nvec) return;
+  Vec16<T> out;
+#pragma unroll
+  for (int e = 0; e < VN; ++e) out.v()[e] = from_f32<T>(acc[e]);
+  reinterpret_cast<uint4*>(dfeat + (((size_t)b * H + y) * W + x) * C)[v] = out.raw;
+}
+
+// BATCHED: the image's ROIs take more than one batch (RB < R), so column
+// sums carry from batch to batch; without it that code compiles away.
+template <typename T, bool BATCHED>
+__global__ void __launch_bounds__(BWD_WARPS * 32, 4)
+roi_align_bwd_kernel(const T* __restrict__ grad, const float* __restrict__ rois,
+                     T* __restrict__ dfeat, int H, int W, int C, int R, int P, int RB, int XT) {
+  constexpr int VN = Vec16<T>::N;
+  const int rp = RB * P, cap = rp * P;
+  extern __shared__ __align__(16) unsigned char smem[];
+  ColTap* ct = reinterpret_cast<ColTap*>(smem);                 // [RB][P]
+  int* code = reinterpret_cast<int*>(ct + rp);                  // [RB P] hits: (r - r0) << 16 | i
+  float* wyv = reinterpret_cast<float*>(code + rp);             // [RB P] hits' row weights
+  Entry* entries = reinterpret_cast<Entry*>(wyv + rp);          // [cap]
+  float* runs = reinterpret_cast<float*>(entries + cap);        // [BWD_WARPS][32][8]
+  float* carry = runs + BWD_WARPS * 32 * 8;                     // [XT][32][VN] if BATCHED
+  int* count = reinterpret_cast<int*>(carry + (BATCHED ? XT * 32 * VN : 0));  // [W]
+  int* cursor = count + W;                                      // [W]
+  short* ex = reinterpret_cast<short*>(cursor + W);             // [cap] entries' columns
+  short* order = ex + cap;                                      // [cap] entries by column
+  short* zero_cols = order + cap;                               // [W] a round's columns:
+  short* one_cols = zero_cols + W;                              // [W]   with no entry, summed
+  short* split_cols = one_cols + W;                             // [W]   by one warp, split
+  __shared__ int warp_sum[BWD_WARPS];
+  __shared__ int next_col, round_end, row_entries, n_zero, n_one, n_split;
+
+  const int y = blockIdx.x % H;
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nvec = C / VN, chunks = (nvec + 31) / 32;
+  const int v0 = blockIdx.x / H % chunks * 32, v = v0 + lane;  // the chunk's vectors; this lane's
+  const int xa = blockIdx.x / H / chunks * XT, xb = min(W, xa + XT);  // the block's columns
+  const uint4* gv = reinterpret_cast<const uint4*>(grad);
+  const unsigned full = 0xffffffffu;
+
+  for (int r0 = 0; r0 < R; r0 += RB) {
+    const int r1 = min(R, r0 + RB);
+    const bool first = !BATCHED || r0 == 0, last = !BATCHED || r1 == R;
+    __syncthreads();  // the batch before is done with shared memory
+    // 1. the hits on row y, in (r, i) order
+    for (int x = threadIdx.x; x < W; x += blockDim.x) count[x] = 0;
+    int nh = 0;
+    for (int rbase = r0; rbase < r1; rbase += blockDim.x) {
+      const int t = rbase + threadIdx.x;
+      int cnt = 0;
+      float y1 = 0.f, crop_h = 0.f;
+      if (t < r1) {
+        const float* roi = rois + ((size_t)b * R + t) * 4;
+        y1 = roi[1];
+        crop_h = roi[3] - y1;
+        const Taps first_i = taps(0, y1, crop_h, P, H), last_i = taps(P - 1, y1, crop_h, P, H);
+        if (y >= min(min(first_i.lo, first_i.hi), min(last_i.lo, last_i.hi)) &&
+            y <= max(max(first_i.lo, first_i.hi), max(last_i.lo, last_i.hi))) {
+          const float x1 = roi[0], crop_w = roi[2] - x1;
+          for (int j = 0; j < P; ++j) {
+            const Taps tx = taps(j, x1, crop_w, P, W);
+            ct[(t - r0) * P + j] = ColTap{(short)tx.lo, (short)tx.hi, tx.frac};
+          }
+          for (int i = 0; i < P; ++i) {
+            const Taps ty = taps(i, y1, crop_h, P, H);
+            cnt += ty.lo == y || (ty.hi == y && ty.frac != 0.f);
+          }
+        }
+      }
+      int total;
+      int off = nh + block_scan(cnt, warp_sum, &total);
+      nh += total;
+      if (cnt > 0) {
+        for (int i = 0; i < P; ++i) {
+          const Taps ty = taps(i, y1, crop_h, P, H);
+          const bool lo = ty.lo == y, hi = ty.hi == y && ty.frac != 0.f;
+          if (!lo && !hi) continue;
+          code[off] = ((t - r0) << 16) | i;
+          wyv[off++] = lo && hi ? __fadd_rn(1.f - ty.frac, ty.frac) : lo ? 1.f - ty.frac : ty.frac;
+        }
+      }
+    }
+    __syncthreads();  // the hits and column taps are written
+
+    // the entries of each column of the row
+    for (int h = threadIdx.x; h < nh; h += blockDim.x) {
+      const ColTap* c = ct + (code[h] >> 16) * P;
+      for (int j = 0; j < P; ++j) {
+        int xs[2];
+        float wx[2];
+        const int n = col_entries(c[j], xs, wx);
+        for (int k = 0; k < n; ++k) atomicAdd(&count[xs[k]], 1);
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int n = 0;
+      for (int x = lane; x < W; x += 32) n += count[x];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(full, n, o);
+      if (lane == 0) row_entries = n;
+    }
+
+    // 2-3. rounds of whole columns of the block's whose entries fit the buffer
+    for (int xs0 = xa; xs0 < xb;) {
+      __syncthreads();
+      if (warp == 0) {
+        // the round's end, each column's start (cursor), and the lists of
+        // its columns with no entry, summed by one warp, and split over the
+        // warps
+        const int total = row_entries;
+        int base = 0, nz = 0, nl = 0, ns = 0, xe = xb;
+        for (int x0 = xs0; x0 < xb; x0 += 32) {
+          const int x = x0 + lane, n = x < xb ? count[x] : 0;
+          int incl = n;
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const int m = __shfl_up_sync(full, incl, o);
+            if (lane >= o) incl += m;
+          }
+          const unsigned over = __ballot_sync(full, x < xb && base + incl > cap);
+          const int end = over ? __ffs(over) - 1 : 32;  // columns x0 .. x0 + end - 1 fit
+          const bool in = x < xb && lane < end;
+          if (in) cursor[x] = base + incl - n;
+          const bool split = in && n > BWD_HEAVY && n * BWD_WARPS > total;
+          const unsigned zero = __ballot_sync(full, in && n == 0);
+          const unsigned one = __ballot_sync(full, in && n > 0 && !split);
+          const unsigned many = __ballot_sync(full, split);
+          const unsigned below = (1u << lane) - 1;
+          if (in && n == 0) zero_cols[nz + __popc(zero & below)] = (short)x;
+          if (in && n > 0 && !split) one_cols[nl + __popc(one & below)] = (short)x;
+          if (split) split_cols[ns + __popc(many & below)] = (short)x;
+          nz += __popc(zero), nl += __popc(one), ns += __popc(many);
+          base += __shfl_sync(full, incl, 31);
+          if (over) {
+            xe = x0 + end;
+            break;
+          }
+        }
+        if (lane == 0) {
+          round_end = xe, n_zero = nz, n_one = nl, n_split = ns, next_col = 0;
+        }
+      }
+      __syncthreads();
+      const int xe = round_end;
+      // the round's entries in (r, i, j, lo/hi) order
+      int ne = 0;
+      for (int hbase = 0; hbase < nh; hbase += blockDim.x) {
+        const int h = hbase + threadIdx.x;
+        int cnt = 0;
+        const ColTap* c = ct;
+        if (h < nh) {
+          c = ct + (code[h] >> 16) * P;
+          for (int j = 0; j < P; ++j) {
+            int xs[2];
+            float wx[2];
+            const int n = col_entries(c[j], xs, wx);
+            for (int k = 0; k < n; ++k) cnt += xs[k] >= xs0 && xs[k] < xe;
+          }
+        }
+        int total;
+        int off = ne + block_scan(cnt, warp_sum, &total);
+        ne += total;
+        if (cnt > 0) {
+          const int row0 = ((b * R + r0 + (code[h] >> 16)) * P + (code[h] & 0xffff)) * P;
+          const float wy = wyv[h];
+          for (int j = 0; j < P; ++j) {
+            int xs[2];
+            float wx[2];
+            const int n = col_entries(c[j], xs, wx);
+            for (int k = 0; k < n; ++k) {
+              if (xs[k] < xs0 || xs[k] >= xe) continue;
+              entries[off] = Entry{row0 + j, __fmul_rn(wy, wx[k])};
+              ex[off++] = (short)xs[k];
+            }
+          }
+        }
+      }
+      __syncthreads();  // the round's entries are written
+      // sort them stably by column: one warp, 32 entries at a time
+      if (warp == 0) {
+        for (int e0 = 0; e0 < ne; e0 += 32) {
+          const int e = e0 + lane;
+          const int x = e < ne ? ex[e] : -1;
+          const unsigned same = __match_any_sync(full, x);
+          const int leader = __ffs(same) - 1;
+          int pos = 0;
+          if (lane == leader && x >= 0) {
+            pos = cursor[x];
+            cursor[x] = pos + __popc(same);
+          }
+          pos = __shfl_sync(full, pos, leader) + __popc(same & ((1u << lane) - 1));
+          if (x >= 0) order[pos] = (short)e;
+        }
+      } else {
+        // the columns with no entry in this batch: their sums so far
+        for (int k = threadIdx.x - 32; k < n_zero * 32; k += blockDim.x - 32) {
+          const int x = zero_cols[k >> 5], l = k & 31;
+          float acc[VN];
+          carried<VN>(acc, carry, first, x - xa, l);
+          finish<T>(dfeat, carry, last, acc, b, y, x, x - xa, l, H, W, C, nvec, v0 + l);
+        }
+      }
+      __syncthreads();  // cursor[x] is now the end of column x's entries
+
+      // columns that one warp sums
+      for (;;) {
+        int k = 0;
+        if (lane == 0) k = atomicAdd(&next_col, 1);
+        k = __shfl_sync(full, k, 0);
+        if (k >= n_one) break;
+        const int x = one_cols[k], n = count[x];
+        float acc[VN];
+        carried<VN>(acc, carry, first, x - xa, lane);
+        sum_entries<T>(acc, entries, order, cursor[x] - n, cursor[x], gv, nvec, v);
+        finish<T>(dfeat, carry, last, acc, b, y, x, x - xa, lane, H, W, C, nvec, v);
+      }
+      // split columns: warp w sums the w-th run (warp 0 from the carried
+      // sum), then the runs are added in order
+      for (int k = 0; k < n_split; ++k) {
+        const int x = split_cols[k], n = count[x], a = cursor[x] - n;
+        float acc[VN];
+        carried<VN>(acc, carry, first || warp > 0, x - xa, lane);
+        sum_entries<T>(acc, entries, order, a + n * warp / BWD_WARPS,
+                       a + n * (warp + 1) / BWD_WARPS, gv, nvec, v);
+#pragma unroll
+        for (int e = 0; e < VN; ++e) runs[(warp * 32 + lane) * VN + e] = acc[e];
+        __syncthreads();
+        if (warp == 0) {
+#pragma unroll
+          for (int e = 0; e < VN; ++e) acc[e] = runs[lane * VN + e];
+          for (int w = 1; w < BWD_WARPS; ++w)
+#pragma unroll
+            for (int e = 0; e < VN; ++e)
+              acc[e] = __fadd_rn(acc[e], runs[(w * 32 + lane) * VN + e]);
+          finish<T>(dfeat, carry, last, acc, b, y, x, x - xa, lane, H, W, C, nvec, v);
+        }
+        __syncthreads();  // the runs are read
+      }
+      xs0 = xe;
+    }
   }
 }
 
 template <typename T>
-int launch_bwd(const void* grad, const void* rois, void* dfeat32, void* dfeat, int B, int H, int W,
-               int C, int R, int P, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t n = (size_t)B * H * W * C;
-  cudaError_t err = cudaMemsetAsync(dfeat32, 0, n * sizeof(float), s);
+int launch_bwd(const void* grad, const void* rois, void* dfeat, int B, int H, int W, int C, int R,
+               int P, void* stream) {
+  const BwdPlan plan = bwd_plan(R, P, W, Vec16<T>::N);
+  if (plan.smem == 0) return (int)cudaErrorInvalidValue;  // P, W too large for a block
+  auto kernel = plan.rb < R ? roi_align_bwd_kernel<T, true> : roi_align_bwd_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)plan.smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(R * P, B);
-  roi_align_bwd_kernel<T><<<grid, THREADS, 0, s>>>((const T*)grad, (const float*)rois,
-                                                   (float*)dfeat32, H, W, C, R, P);
-  if (dfeat != dfeat32) {
-    f32_to_bf16_kernel<<<132 * 8, 256, 0, s>>>((const float4*)dfeat32, (__nv_bfloat162*)dfeat,
-                                               n / 4);
-  }
+  const int chunks = (C / Vec16<T>::N + 31) / 32, tiles = (W + plan.xt - 1) / plan.xt;
+  dim3 grid(tiles * chunks * H, B);
+  kernel<<<grid, BWD_WARPS * 32, plan.smem, (cudaStream_t)stream>>>(
+      (const T*)grad, (const float*)rois, (T*)dfeat, H, W, C, R, P, plan.rb, plan.xt);
   return (int)cudaGetLastError();
 }
 
@@ -184,18 +555,14 @@ extern "C" int frcnn_roi_align_f32(const void* feat, const void* rois, void* out
   return launch<float>(feat, rois, out, B, H, W, C, R, P, stream);
 }
 
-// dfeat32: a (B, H, W, C) f32 scratch, zeroed here; dfeat: the bf16 result.
-extern "C" int frcnn_roi_align_bwd_bf16(const void* grad, const void* rois, void* dfeat32,
-                                        void* dfeat, int B, int H, int W, int C, int R, int P,
-                                        void* stream) {
-  return launch_bwd<__nv_bfloat16>(grad, rois, dfeat32, dfeat, B, H, W, C, R, P, stream);
+extern "C" int frcnn_roi_align_bwd_bf16(const void* grad, const void* rois, void* dfeat, int B,
+                                        int H, int W, int C, int R, int P, void* stream) {
+  return launch_bwd<__nv_bfloat16>(grad, rois, dfeat, B, H, W, C, R, P, stream);
 }
 
-// The f32 result is accumulated in place: dfeat32 and dfeat are one buffer.
-extern "C" int frcnn_roi_align_bwd_f32(const void* grad, const void* rois, void* dfeat32,
-                                       void* dfeat, int B, int H, int W, int C, int R, int P,
-                                       void* stream) {
-  return launch_bwd<float>(grad, rois, dfeat32, dfeat, B, H, W, C, R, P, stream);
+extern "C" int frcnn_roi_align_bwd_f32(const void* grad, const void* rois, void* dfeat, int B,
+                                       int H, int W, int C, int R, int P, void* stream) {
+  return launch_bwd<float>(grad, rois, dfeat, B, H, W, C, R, P, stream);
 }
 
 extern "C" const char* frcnn_cuda_error_string(int err) {

@@ -2,8 +2,9 @@
 as one ``torch.autograd.Function``.
 
 Replaces faster_rcnn_tpu/ops/roi_align_pallas.py ``roi_align_pallas`` and its
-custom VJP. One launch pools every ROI of a batch; one launch scatters the
-pooled cotangent of a batch back into the feature map. The ROIs take no
+custom VJP. One launch pools every ROI of a batch; one launch gathers the
+pooled cotangent of a batch back into the feature map, each pixel of the
+map written once by the block that owns it. The ROIs take no
 gradient: the train step computes them under ``no_grad``, as the JAX step
 puts them under ``stop_gradient``.
 """
@@ -68,8 +69,10 @@ def _forward(features: torch.Tensor, rois: torch.Tensor, pool_size: int) -> torc
 def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, feature_shape,
                        pool_size: int = 7) -> torch.Tensor:
     """(B, R, P, P, C) cotangent of the pooled features -> (B, H, W, C)
-    gradient of the map in ``grad``'s dtype, summed in f32. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel."""
+    gradient of the map in ``grad``'s dtype, summed in f32 and rounded once.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel,
+    which writes every pixel of the result once (no scratch, no atomics) and
+    gives the same bits on every run, for any number of ROIs an image."""
     b, h, w, c = feature_shape
     r = rois.shape[1]
     if tuple(grad.shape) != (b, r, pool_size, pool_size, c) or tuple(rois.shape) != (b, r, 4):
@@ -78,14 +81,14 @@ def roi_align_backward(grad: torch.Tensor, rois: torch.Tensor, feature_shape,
     if grad.device.type == "cpu":
         return roi_align_backward_plain(grad, rois, feature_shape, grad.dtype, pool_size)
     _check_cuda(grad, rois, "roi_align_backward")
+    if grad.data_ptr() % 16 != 0:
+        raise ValueError("roi_align_backward: the kernel reads grad in 16-byte vectors, "
+                         "so it must start on a 16-byte boundary")
     dfeat = torch.empty(tuple(feature_shape), dtype=grad.dtype, device=grad.device)
     if dfeat.numel() == 0 or grad.numel() == 0:
         return dfeat.zero_()
-    # the f32 accumulator: the result itself in f32, a scratch copy in bf16
-    acc = dfeat if grad.dtype == torch.float32 else torch.empty(
-        tuple(feature_shape), dtype=torch.float32, device=grad.device)
     _build.launch("roi_align_bwd", _ENTRY_BWD[grad.dtype], grad, grad.data_ptr(), rois.data_ptr(),
-                  acc.data_ptr(), dfeat.data_ptr(), b, h, w, c, r, pool_size)
+                  dfeat.data_ptr(), b, h, w, c, r, pool_size)
     return dfeat
 
 

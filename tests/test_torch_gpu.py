@@ -210,18 +210,22 @@ def test_topk_kernel_repeats_bit_for_bit(cuda):
         assert torch.equal(v.view(torch.int32), v0.view(torch.int32))
 
 
-@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
-def test_roi_align_backward_kernel_matches_plain(cuda, dtype, rel):
-    """f32 atomics in a run-dependent order against the plain scatter-add:
-    the sums agree to f32 rounding, and in bf16 to one rounding of the
-    result."""
-    rng = np.random.RandomState(3)
-    b, h, w, c, r = 2, 19, 33, 64, 40
+def _bwd_rois(rng, b, h, w, r):
     x1 = rng.randint(0, w - 2, (b, r))
     y1 = rng.randint(0, h - 2, (b, r))
     x2 = np.maximum(np.minimum(x1 + rng.randint(1, 20, (b, r)), w - 1), x1 + 1)
     y2 = np.maximum(np.minimum(y1 + rng.randint(1, 12, (b, r)), h - 1), y1 + 1)
-    rois = np.stack([x1, y1, x2, y2], -1).astype(np.float32)
+    return np.stack([x1, y1, x2, y2], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
+def test_roi_align_backward_kernel_matches_plain(cuda, dtype, rel):
+    """The gather kernel's fixed-order f32 sums against the plain
+    scatter-add: they agree to f32 rounding, and in bf16 to one rounding of
+    the result."""
+    rng = np.random.RandomState(3)
+    b, h, w, c, r = 2, 19, 33, 64, 40
+    rois = _bwd_rois(rng, b, h, w, r)
     rois[1, :10] = rois[1, 10:20]  # repeated ROIs, as the sampler draws
     rois = torch.tensor(rois, device=cuda)
     g = torch.tensor(rng.standard_normal((b, r, 7, 7, c)), dtype=dtype, device=cuda)
@@ -233,6 +237,53 @@ def test_roi_align_backward_kernel_matches_plain(cuda, dtype, rel):
                         requires_grad=True)
     roi_align_cuda.roi_align(feat, rois, 7).backward(g)
     _close(feat.grad, want, rel)
+
+
+@pytest.mark.parametrize("kind", ["sampled", "small_crops", "zero_frac", "last_row_and_column",
+                                  "untouched_rows", "hot_row", "flat_rois", "chunks_and_many_rois",
+                                  "rois_512_wide"])
+def test_roi_align_backward_kernel_is_its_model_bit_for_bit(cuda, kind):
+    """The kernel against the numpy model of its algorithm
+    (tests/test_torch_roi_align_bwd.py), on the model's edge cases: f32 bit
+    for bit, and bf16 the model's f32 sums of the bf16 values rounded once."""
+    from tests.test_torch_roi_align_bwd import kernel_model, model_bf16, roi_case
+
+    shape, rois, g = roi_case(kind)
+    _, h, w, _ = shape
+    t_rois = torch.tensor(rois, device=cuda)
+    got = roi_align_cuda.roi_align_backward(torch.tensor(g, device=cuda), t_rois, shape, 7)
+    want = kernel_model(g, rois, h, w, 4)[0]
+    assert np.array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32))
+    got16 = roi_align_cuda.roi_align_backward(torch.tensor(g, device=cuda).bfloat16(), t_rois,
+                                              shape, 7)
+    assert torch.equal(got16.cpu().view(torch.int16), model_bf16(g, rois, h, w).view(torch.int16))
+
+
+@pytest.mark.parametrize("kind", ["train_shape", "hot_row", "rois_512"])
+def test_roi_align_backward_kernel_repeats_bit_for_bit(cuda, kind):
+    """Twenty calls give the same bits (the kernel has no atomics), the
+    plain version agrees, and bf16 is the f32 result rounded once; at the
+    train step's shape (16 x 64 ROIs over a 38x94x1024 bf16 map), on a hot
+    row (every ROI of an image the same and smaller than 7x7, so a few rows
+    take all 64 x 7 x 2 hits), and with 512 ROIs an image (four batches)."""
+    rng = np.random.RandomState(7)
+    b, h, w, c, r = 16, 38, 94, 1024, 64
+    if kind == "rois_512":
+        b, r = 4, 512
+    rois = _bwd_rois(rng, b, h, w, r)
+    if kind == "hot_row":
+        c = 256
+        rois[:] = rois[:, :1] * 0 + np.array([10, 20, 13, 22], np.float32)
+    rois = torch.tensor(rois, device=cuda)
+    g = torch.tensor(rng.standard_normal((b, r, 7, 7, c)), dtype=torch.bfloat16, device=cuda)
+    first = roi_align_cuda.roi_align_backward(g, rois, (b, h, w, c), 7)
+    for _ in range(20):
+        again = roi_align_cuda.roi_align_backward(g, rois, (b, h, w, c), 7)
+        assert torch.equal(again.view(torch.int16), first.view(torch.int16))
+    _close(first, roi_align_cuda.roi_align_backward_plain(g, rois, (b, h, w, c),
+                                                          torch.bfloat16, 7), 1e-2)
+    got32 = roi_align_cuda.roi_align_backward(g.float(), rois, (b, h, w, c), 7)
+    assert torch.equal(first.view(torch.int16), got32.bfloat16().view(torch.int16))
 
 
 @pytest.mark.parametrize("kind", ["sgd", "adam"])
@@ -290,6 +341,9 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         roi_align_cuda.roi_align(torch.zeros(1, 4, 4, 6, device=cuda),
                                  torch.zeros(1, 2, 4, device=cuda), 7)
+    g = torch.zeros(1 + 2 * 7 * 7 * 8, dtype=torch.bfloat16, device=cuda)[1:].view(1, 2, 7, 7, 8)
+    with pytest.raises(ValueError):  # 2-byte offset: the backward reads 16-byte vectors
+        roi_align_cuda.roi_align_backward(g, torch.zeros(1, 2, 4, device=cuda), (1, 4, 4, 8), 7)
     sort_cuda.topk_sorted(torch.zeros(2, 100, device=cuda), 10)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["topk"] == before["topk"] + 1
