@@ -7,12 +7,11 @@ Phases, each of which fails the run on any error:
   1. card: name, power limit, device count;
   2. build: nvcc for sm_90a of every kernel, with the ptxas report;
   3. kernels: each kernel against its plain PyTorch version on the card, on
-     inputs captured from the two paths below (ResNet-50 KITTI, B=16): the
-     detection path and the joint train step; K4 also on topk_adversarial's
-     rows at k = 8000 and 128. Each reports its time, the plain version's
-     time, a PyTorch library call's time where one computes the same
-     function, and the bound from the H100's published peaks; K3 also on
-     the proposals of a later train step, after the timed steps of phase 5;
+     inputs captured from every path below (KITTI canvases, B=16); K4 also
+     on topk_adversarial's rows at k = 8000 and 128. Each reports its time,
+     the plain version's time, a PyTorch library call's time where one
+     computes the same function, and the bound from the H100's published
+     peaks; K3 also on the proposals of a later joint train step;
   4. detect: full-width ResNet-50 KITTI detection (608x1504 canvases, B=16,
      seeded random weights) through make_detect_fn, with the launch count of
      every kernel over the timed batches, a torch.profiler table of one
@@ -24,7 +23,15 @@ Phases, each of which fails the run on any error:
   6. whole paths, kernels against plain versions: detection and one joint
      step at B=2 on the card in f32, and both on a small canvas against the
      CPU's plain path;
-  7. a JSON line listing every kernel, then the JSON result line.
+  7. VGG16 and ResNet-101 detection at kitti_config(), B=16, as phase 4;
+  8. the 4-step scheme on VGG16 at kitti_config(), B=16, full width and
+     depth: steps 1 (RPN), 2 (detector on step 1's frozen RPN), 3 (RPN on
+     step 2's frozen backbone) and 4 (detector head on step 3's frozen RPN),
+     each from the weights the one before hands over, with its own SGD;
+     per step 2 warm-up and 3 timed steps, launches, stage times, peak
+     memory; then steps 1, 2 and 4 at B=2 in f32, kernels against plain
+     versions on the card;
+  9. a JSON line listing every kernel, then the JSON result line.
 
 It needs CUDA and the faster_rcnn_tpu_torch package beside it; without
 either it exits non-zero and prints no result.
@@ -53,6 +60,7 @@ from faster_rcnn_tpu_torch.ops import proposals as prop_ops
 from faster_rcnn_tpu_torch.ops.roi_align_taps import roi_axes, row_hits, tap_counts
 from faster_rcnn_tpu_torch.parallel.freeze import make_optimizer
 from faster_rcnn_tpu_torch.train import pipeline
+from faster_rcnn_tpu_torch.train.trainer import merge_params, step_freeze_spec
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
@@ -63,9 +71,25 @@ SCATTER_OPS = 10            # f32 operations of one cotangent value's 4-tap scat
 OUT_DIR = "chiprun_out"
 BATCHES = 3                 # timed detect batches of 16
 TRAIN_WARMUP, TRAIN_STEPS = 2, 5
-# launches of each kernel in one detect call and in one joint train step
-PER_DETECT = {"conv1": 1, "roi_align": 1, "roi_align_bwd": 0, "nms": 2, "topk": 1}
-PER_STEP = {"conv1": 1, "roi_align": 1, "roi_align_bwd": 1, "nms": 1, "topk": 3}
+FOUR_STEP_WARMUP, FOUR_STEP_TIMED = 2, 3
+_DETECT = (("proposal NMS", "final NMS"), ("proposals",))
+_RPN_SAMPLER = ("RPN sampler pos", "RPN sampler neg")
+# each path: (launches of each kernel in one call or step, labels of its NMS
+# calls, labels of its top-k calls); "detect" and "train" are ResNet-50's
+PATHS = {
+    "detect": ({"conv1": 1, "roi_align": 1, "nms": 2, "topk": 1},) + _DETECT,
+    "train": ({"conv1": 1, "roi_align": 1, "roi_align_bwd": 1, "nms": 1, "topk": 3},
+              ("proposal NMS",), _RPN_SAMPLER + ("proposals",)),
+    "vgg16_detect": ({"roi_align": 1, "nms": 2, "topk": 1},) + _DETECT,
+    "resnet101_detect": ({"conv1": 1, "roi_align": 1, "nms": 2, "topk": 1},) + _DETECT,
+    "step1": ({"topk": 2}, (), _RPN_SAMPLER),
+    "step2": ({"roi_align": 1, "roi_align_bwd": 1, "nms": 1, "topk": 1}, ("proposal NMS",),
+              ("proposals",)),
+    "step3": ({"topk": 2}, (), _RPN_SAMPLER),
+    "step4": ({"roi_align": 1, "nms": 1, "topk": 1}, ("proposal NMS",), ("proposals",)),
+}
+# this slice's paths: the kernels line's totals are over one run of each
+MAIN_PATHS = ("step1", "step2", "step3", "step4", "vgg16_detect", "resnet101_detect")
 SOURCES = {"conv1": ("conv1.cu", "faster_rcnn_tpu/ops/conv1_pallas.py:262"),
            "roi_align": ("roi_align.cu", "faster_rcnn_tpu/ops/roi_align_pallas.py:178"),
            "roi_align_bwd": ("roi_align.cu", "faster_rcnn_tpu/ops/roi_align_pallas.py:213"),
@@ -423,6 +447,12 @@ def check_topk_adversarial(dev) -> list:
     return cases
 
 
+def expected_launches(path: str, n: int) -> dict:
+    """Every kernel's launches in ``n`` calls or steps of ``path``."""
+    per = PATHS[path][0]
+    return {k: per.get(k, 0) * n for k in _build.LAUNCHES}
+
+
 def check_kernels(calls: dict, path: str) -> dict:
     """Every kernel call a path made, against its plain version: {kernel:
     [cases]}. ``calls`` comes from one recorded run of the path."""
@@ -433,12 +463,14 @@ def check_kernels(calls: dict, path: str) -> dict:
         out.setdefault("roi_align", []).append(check_roi_align(path, *args))
     for args, _ in calls.get("roi_align_bwd", []):
         out.setdefault("roi_align_bwd", []).append(check_roi_align_bwd(path, *args))
-    labels = {"detect": ("proposal NMS", "final NMS"), "train": ("proposal NMS",)}[path]
-    for label, (args, kw) in zip(labels, calls.get("nms", [])):
+    _, nms_labels, topk_labels = PATHS[path]
+    if (len(calls.get("nms", [])), len(calls.get("topk", []))) != (len(nms_labels),
+                                                                    len(topk_labels)):
+        raise RuntimeError(f"{path}: NMS and top-k calls {len(calls.get('nms', []))}, "
+                           f"{len(calls.get('topk', []))}, expected {nms_labels}, {topk_labels}")
+    for label, (args, kw) in zip(nms_labels, calls.get("nms", [])):
         out.setdefault("nms", []).append(check_nms(f"{path} {label}", args, kw))
-    labels = {"detect": ("proposals",),
-              "train": ("RPN sampler pos", "RPN sampler neg", "proposals")}[path]
-    for label, (args, _) in zip(labels, calls.get("topk", [])):
+    for label, (args, _) in zip(topk_labels, calls.get("topk", [])):
         out.setdefault("topk", []).append(check_topk(f"{path} {label} k={args[1]}", *args))
     bad = [f"{k} {c['case']}" for k, cases in out.items() for c in cases if not c["ok"]]
     if bad:
@@ -446,28 +478,37 @@ def check_kernels(calls: dict, path: str) -> dict:
     return out
 
 
-def kernel_entries(train_cases: dict, detect_cases: dict, train_launches: dict,
-                   detect_launches: dict, topk_adversarial_cases: list, nms_later: dict) -> list:
-    """The kernels line: per kernel the sums over one train step's launches
-    (this slice's path) and, under "detect", over one detect call's; K4 also
-    lists its adversarial cases, K3 its case on a later train step."""
-    def total(cases):
-        if not cases:
-            return None
-        lib = [c["library_ms"] for c in cases]
-        return {"ms": sum(c["ms"] for c in cases), "plain_ms": sum(c["plain_ms"] for c in cases),
-                "bound_ms": sum(c["bound_ms"] for c in cases),
-                "bound_by": cases[0]["bound_by"],
-                "library_ms": None if None in lib else sum(lib),
-                "max_abs_err": max(c["max_abs_err"] for c in cases)}
+def _total(cases):
+    if not cases:
+        return None
+    lib = [c["library_ms"] for c in cases]
+    return {"ms": sum(c["ms"] for c in cases), "plain_ms": sum(c["plain_ms"] for c in cases),
+            "bound_ms": sum(c["bound_ms"] for c in cases), "bound_by": cases[0]["bound_by"],
+            "library_ms": None if None in lib else sum(lib),
+            "max_abs_err": max(c["max_abs_err"] for c in cases)}
 
+
+def kernel_entries(cases: dict, launches: dict, topk_adversarial_cases: list,
+                   nms_later: dict) -> list:
+    """The kernels line. ``cases`` and ``launches`` are keyed by path: the
+    checked calls of one recorded run, and the launches of one call or step
+    of the timed run. Per kernel: ``launches`` over one run of each of this
+    slice's paths (MAIN_PATHS), and the times, bound and error summed over
+    their cases (the kernel's calls in one run of each); ``paths`` gives
+    the same per path, the ResNet-50 detect call and joint step included.
+    K4 also lists its adversarial cases, K3 its case on a later joint
+    step."""
     out = []
     for name, (src, replaces) in SOURCES.items():
+        main = [c for p in MAIN_PATHS for c in cases.get(p, {}).get(name, [])]
+        if not main:
+            raise RuntimeError(f"{name} was checked on none of the paths {MAIN_PATHS}")
         entry = {"name": name, "route": "cuda", "source": f"faster_rcnn_tpu_torch/csrc/{src}",
-                 "replaces": replaces, "launches": train_launches[name],
-                 **total(train_cases[name])}
-        det = total(detect_cases.get(name))
-        entry["detect"] = None if det is None else dict(det, launches=detect_launches[name])
+                 "replaces": replaces,
+                 "launches": sum(launches[p][name] for p in MAIN_PATHS if p in launches),
+                 **_total(main)}
+        entry["paths"] = {p: dict(_total(pc[name]), launches=launches[p][name])
+                          for p, pc in cases.items() if pc.get(name)}
         if name == "topk":
             entry["adversarial"] = [{key: c[key] for key in ("case", "ms", "library_ms",
                                                               "max_abs_err")}
@@ -508,12 +549,13 @@ def _recording(calls: dict, name: str, fn):
 
 
 class KittiDetect:
-    """ResNet-50 at kitti_config() with seeded random weights, B=16 uint8
-    canvases holding a 453x1500 image each, and the detect function."""
+    """A network at a KITTI config (``kitti_config()``: ResNet-50) with
+    seeded random weights, B=16 uint8 canvases holding a 453x1500 image
+    each, and the detect function."""
 
-    def __init__(self, rng, dev, b: int = 16):
-        self.cfg = kitti_config()
-        self.b = b
+    def __init__(self, rng, dev, b: int = 16, cfg=None, path: str = "detect"):
+        self.cfg = kitti_config() if cfg is None else cfg
+        self.b, self.path = b, path
         self.model = init_model(0, self.cfg, dev)
         self.detect = inference.make_detect_fn(self.cfg, self.model, dev)
         img, hw = kitti_batch(rng, b, self.cfg)
@@ -551,6 +593,7 @@ def device_busy(prof) -> dict:
 
 def phase_detect(run: KittiDetect, first: float) -> dict:
     cfg, b, detect, images, img_hw = run.cfg, run.b, run.detect, run.images, run.img_hw
+    path = run.path
     batches = BATCHES
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -567,9 +610,9 @@ def phase_detect(run: KittiDetect, first: float) -> dict:
             "first_call_s": first, "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches": launches, "valid_per_image": dets.valid.sum(1).tolist(),
             "records": sum(len(r) for r in recs)}
-    log(f"[detect] ResNet-50 KITTI B={b} {images.shape[1]}x{images.shape[2]}, "
+    log(f"[{path}] {cfg.model.network} KITTI B={b} {images.shape[1]}x{images.shape[2]}, "
         f"{batches} batches: {info}")
-    want = {k: v * batches for k, v in PER_DETECT.items()}
+    want = expected_launches(path, batches)
     if launches != want:
         raise RuntimeError(f"kernel launches {launches}, expected {want}")
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -579,11 +622,11 @@ def phase_detect(run: KittiDetect, first: float) -> dict:
         detect(images, img_hw)
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    with open(os.path.join(OUT_DIR, "detect_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, f"{path}_profile.txt"), "w") as f:
         f.write(table)
-    log("[profile] top kernels by device time:\n" + "\n".join(table.splitlines()[:25]))
+    log(f"[{path} profile] top kernels by device time:\n" + "\n".join(table.splitlines()[:25]))
     info["profiled_batch"] = device_busy(prof)
-    log(f"[profile] one batch on the device: {info['profiled_batch']}")
+    log(f"[{path} profile] one batch on the device: {info['profiled_batch']}")
     return info
 
 
@@ -674,6 +717,28 @@ class KittiTrain:
         return calls, first
 
 
+def stage_times(step, batch, gen, reps: int = 3) -> dict:
+    """ms of each stage of a train step, from CUDA events at the step's
+    marks, the mean over ``reps`` further (uncounted) steps."""
+    stages: dict = {}
+    with uncounted():
+        for _ in range(reps):
+            events = [("start", torch.cuda.Event(enable_timing=True))]
+            events[0][1].record()
+
+            def mark(name):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append((name, ev))
+
+            step(batch, gen, mark=mark)
+            torch.cuda.synchronize()
+            for (_, a), (name, b) in zip(events, events[1:]):
+                stages[name] = stages.get(name, 0.0) + a.elapsed_time(b) / reps
+    stages["sum"] = sum(stages.values())
+    return stages
+
+
 def phase_train(run: KittiTrain, first: float) -> dict:
     for _ in range(TRAIN_WARMUP):
         with uncounted():
@@ -690,34 +755,16 @@ def phase_train(run: KittiTrain, first: float) -> dict:
     info = {"img_per_s": run.b * TRAIN_STEPS / sec, "step_ms": sec / TRAIN_STEPS * 1e3,
             "first_step_s": first, "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches": launches, "metrics": losses}
-    log(f"[train] ResNet-50 KITTI joint step B={run.b}, {TRAIN_STEPS} steps after "
+    log(f"[train] {run.cfg.model.network} KITTI joint step B={run.b}, {TRAIN_STEPS} steps after "
         f"{TRAIN_WARMUP} warm-up: {info}")
     if not all(np.isfinite(v) for m in losses for v in m.values()):
         raise RuntimeError(f"non-finite train metrics {losses}")
-    want = {k: v * TRAIN_STEPS for k, v in PER_STEP.items()}
+    want = expected_launches("train", TRAIN_STEPS)
     if launches != want:
         raise RuntimeError(f"kernel launches {launches}, expected {want}")
-
-    # stages: CUDA events at the step's marks, over 3 further steps
-    stages: dict = {}
-    with uncounted():
-        for _ in range(3):
-            events = [("start", torch.cuda.Event(enable_timing=True))]
-            events[0][1].record()
-
-            def mark(name):
-                ev = torch.cuda.Event(enable_timing=True)
-                ev.record()
-                events.append((name, ev))
-
-            run.step(run.batch, run.gen, mark=mark)
-            torch.cuda.synchronize()
-            for (_, a), (name, b) in zip(events, events[1:]):
-                stages[name] = stages.get(name, 0.0) + a.elapsed_time(b) / 3
-    stages["sum"] = sum(stages.values())
-    info["breakdown_ms"] = stages
+    info["breakdown_ms"] = stage_times(run.step, run.batch, run.gen)
     log(f"[train breakdown] ms per B={run.b} step: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+        + ", ".join(f"{k} {v:.3f}" for k, v in info["breakdown_ms"].items()))
     os.makedirs(OUT_DIR, exist_ok=True)
     with uncounted(), torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU,
@@ -828,12 +875,23 @@ def _model(cfg, state: dict, dev) -> FasterRCNN:
     return model.to(dev).eval()
 
 
-def _train_once(cfg, state, dev, batch, draws, plain: bool):
+def _train_once(cfg, state, dev, batch, draws, plain: bool, step="joint", rpn_state=None):
+    """One train step (the joint step, or a step 1-4 of the 4-step scheme
+    with ``rpn_state`` its frozen RPN) from ``state``, SGD lr 1e-3 with
+    momentum: (metrics, parameters after, labels)."""
     model = _model(cfg, state, dev)
-    opt = make_optimizer(model, cfg.model.network, cfg.model.freeze_blocks, 1e-3, momentum=0.9)
-    step = pipeline.make_joint_train_step(cfg, model, opt, device=dev)
+    fb, fm = step_freeze_spec(step, cfg)
+    opt = make_optimizer(model, cfg.model.network, fb, 1e-3, momentum=0.9, freeze_modules=fm)
+    if step == "joint":
+        run = pipeline.make_joint_train_step(cfg, model, opt, fb, fm, device=dev)
+    elif step in (1, 3):
+        run = pipeline.make_rpn_train_step(cfg, model, opt, fb, fm, device=dev)
+    else:
+        run = pipeline.make_det_train_step(cfg, model, opt, _model(cfg, rpn_state, dev),
+                                           heads_only=step == 4, freeze_blocks=fb,
+                                           freeze_modules=fm, device=dev)
     with uncounted(), (plain_versions() if plain else contextlib.nullcontext()):
-        metrics = step(batch, draws)
+        metrics = run(batch, draws)
     return ({k: float(v) for k, v in metrics.items()},
             {n: p.detach().cpu() for n, p in model.named_parameters()}, opt.labels)
 
@@ -859,8 +917,9 @@ def _step_agreement(before, got, want) -> dict:
         ratio = err / delta if delta > 0 else (0.0 if err == 0 else float("inf"))
         if ratio >= worst[group][0]:
             worst[group] = (ratio, n)
-    ok = (loss_err <= 1e-4 and not frozen_moved and gm["num_valid_images"] ==
-          wm["num_valid_images"] and worst["rpn_head"][0] <= 2e-2 and worst["rest"][0] <= 1e-3)
+    ok = (loss_err <= 1e-4 and not frozen_moved and gm.get("num_valid_images") ==
+          wm.get("num_valid_images") and worst["rpn_head"][0] <= 2e-2
+          and worst["rest"][0] <= 1e-3)
     return {"ok": ok, "metrics": gm, "metrics_ref": wm, "loss_rel_err": loss_err,
             "worst_param_ratio": worst, "frozen_moved": frozen_moved}
 
@@ -905,6 +964,167 @@ def phase_whole_train(rng, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 7-8: VGG16 and ResNet-101; the 4-step scheme on VGG16
+# --------------------------------------------------------------------------
+
+
+def vgg_kitti_config(compute_dtype: str = "bfloat16"):
+    """kitti_config() on VGG16 with the VGG values of voc_config("vgg16"):
+    blocks 1-2 frozen, no weight decay."""
+    base = kitti_config()
+    return base.replace(model=dataclasses.replace(
+        base.model, network="vgg16", freeze_blocks=(1, 2), weight_decay=0.0,
+        compute_dtype=compute_dtype))
+
+
+def r101_kitti_config():
+    base = kitti_config()
+    return base.replace(model=dataclasses.replace(base.model, network="resnet101"))
+
+
+def phase_other_detect(rng, dev) -> tuple:
+    """VGG16 and ResNet-101 detection at B=16 with their kernel checks:
+    ({path: info}, {path: cases})."""
+    infos, cases = {}, {}
+    for path, cfg in (("vgg16_detect", vgg_kitti_config()),
+                      ("resnet101_detect", r101_kitti_config())):
+        run = KittiDetect(rng, dev, cfg=cfg, path=path)
+        calls, first = run.capture()
+        with torch.inference_mode():
+            cases[path] = check_kernels(calls, path)
+        del calls
+        infos[path] = phase_detect(run, first)
+        del run
+        torch.cuda.empty_cache()
+    return infos, cases
+
+
+class FourStep:
+    """The 4-step scheme on VGG16 at vgg_kitti_config(), B=16: a fresh
+    seeded model, seeded uint8 canvases with ground truth as KittiTrain's,
+    and each step's model built from the weights the steps before it hand
+    over (trainer.py:325-352 of the JAX package)."""
+
+    def __init__(self, rng, dev, b: int = 16, seed: int = 0):
+        self.cfg = vgg_kitti_config()
+        self.dev, self.b = dev, b
+        self.fresh = init_model(seed, self.cfg, "cpu").state_dict()
+        self.batch = {k: torch.as_tensor(v, device=dev)
+                      for k, v in kitti_train_batch(rng, b, self.cfg).items()}
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.models: dict = {}  # trained models the later steps still need
+
+    def build(self, step: int):
+        """Step ``step``'s model, optimizer (SGD lr 1e-3, momentum 0.9, clip
+        10, from step_freeze_spec) and step function."""
+        cfg, handoff = self.cfg, {3: (2, ["backbone"]), 4: (3, ["backbone", "rpn_head"])}
+        state = self.fresh
+        if step in handoff:
+            src, keys = handoff[step]
+            state = merge_params(self.fresh, self.models[src].state_dict(), keys)
+        model = _model(cfg, state, self.dev)
+        fb, fm = step_freeze_spec(step, cfg)
+        opt = make_optimizer(model, cfg.model.network, fb, 1e-3, momentum=0.9,
+                             weight_decay=cfg.model.weight_decay, freeze_modules=fm,
+                             clip_grad_norm=10.0)
+        if step in (1, 3):
+            fn = pipeline.make_rpn_train_step(cfg, model, opt, fb, fm, device=self.dev)
+        else:
+            fn = pipeline.make_det_train_step(cfg, model, opt, self.models[step - 1],
+                                              heads_only=step == 4, freeze_blocks=fb,
+                                              freeze_modules=fm, device=self.dev)
+        return model, opt, fn
+
+
+def phase_four_step(run: FourStep) -> tuple:
+    """Steps 1 -> 2 -> 3 -> 4: per step one recorded step whose kernel
+    calls are checked, 2 warm-up and 3 timed steps (img/s, ms, launches,
+    peak memory), and the stage times of 3 more. A step's optimizer state is
+    freed before the next step starts. Returns ({step: info}, {step:
+    cases})."""
+    infos, cases = {}, {}
+    needed_until = {1: 2, 2: 3, 3: 4}  # a step's model serves the next step
+    for step in (1, 2, 3, 4):
+        path = f"step{step}"
+        model, opt, fn = run.build(step)
+        calls: dict = {}
+        with recording(calls):
+            t0 = time.perf_counter()
+            fn(run.batch, run.gen)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+        cases[path] = check_kernels(calls, path)
+        del calls
+        with uncounted():
+            for _ in range(FOUR_STEP_WARMUP):
+                fn(run.batch, run.gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        metrics = [fn(run.batch, run.gen) for _ in range(FOUR_STEP_TIMED)]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        losses = [{k: float(v) for k, v in m.items()} for m in metrics]
+        info = {"img_per_s": run.b * FOUR_STEP_TIMED / sec,
+                "step_ms": sec / FOUR_STEP_TIMED * 1e3, "first_step_s": first,
+                "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": launches, "metrics": losses,
+                "trainable": sum(lab == "train" for lab in opt.labels.values())}
+        log(f"[{path}] VGG16 KITTI B={run.b}, {FOUR_STEP_TIMED} steps after "
+            f"{FOUR_STEP_WARMUP} warm-up: {info}")
+        if not all(np.isfinite(v) for m in losses for v in m.values()):
+            raise RuntimeError(f"non-finite {path} metrics {losses}")
+        want = expected_launches(path, FOUR_STEP_TIMED)
+        if launches != want:
+            raise RuntimeError(f"{path} kernel launches {launches}, expected {want}")
+        info["breakdown_ms"] = stage_times(fn, run.batch, run.gen)
+        log(f"[{path} breakdown] ms per B={run.b} step: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in info["breakdown_ms"].items()))
+        infos[path] = info
+        del opt, fn  # the optimizer's state goes with the step function
+        run.models[step] = model
+        for done in [s for s, until in needed_until.items() if until == step]:
+            run.models.pop(done, None)
+        torch.cuda.empty_cache()
+    run.models.clear()
+    return infos, cases
+
+
+def phase_whole_four_step(rng, dev) -> dict:
+    """Steps 1, 2 and 4 at the full canvas, B=2, f32, from the same
+    weights, batch and draws: the card's kernels against the card's plain
+    versions, with phase_whole_train's limits (_step_agreement). The
+    frozen RPN of steps 2 and 4 has its outputs made of biases
+    (_bias_only_rpn), so that its proposals are the same on both sides;
+    step 1's kernels see no output of the model (K4 samples anchors by
+    uniform priorities), so it starts from random weights."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = vgg_kitti_config("float32")
+    state = init_model(1, cfg, "cpu").state_dict()
+    rpn_state = _bias_only_rpn(init_model(2, cfg, "cpu").state_dict(), cfg.anchors.num_anchors)
+    batch = kitti_train_batch(rng, 2, cfg)
+    draws = pipeline.draw_samples(cfg, 2, torch.Generator(device=dev).manual_seed(3))
+    out = {}
+    for step in (1, 2, 4):
+        runs = [_train_once(cfg, state, dev, batch, draws, plain, step, rpn_state)
+                for plain in (False, True)]
+        out[f"step{step}_kitti_b2_f32"] = _step_agreement(state, *runs)
+        del runs
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    log(f"[whole four-step path] {json.dumps(out)}")
+    # steps 2 and 4 compare something only where both images have ROIs
+    bad = [k for k, v in out.items()
+           if not v["ok"] or v["metrics"].get("num_valid_images", 2) != 2]
+    if bad:
+        raise RuntimeError(f"the 4-step scheme's kernels and plain versions disagree: {bad}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -914,10 +1134,11 @@ def main() -> int:
     phase_build()
 
     rng = np.random.RandomState(0)
+    cases, launches = {}, {}
     run = KittiDetect(rng, dev)
     calls, first = run.capture()
     with torch.inference_mode():
-        detect_cases = check_kernels(calls, "detect")
+        cases["detect"] = check_kernels(calls, "detect")
         adversarial = check_topk_adversarial(dev)
     del calls
     det = phase_detect(run, first)
@@ -927,7 +1148,7 @@ def main() -> int:
 
     train = KittiTrain(rng, dev)
     calls, first = train.capture()
-    train_cases = check_kernels(calls, "train")
+    cases["train"] = check_kernels(calls, "train")
     del calls
     tr = phase_train(train, first)
     nms_later = check_nms_later_step(train)
@@ -937,17 +1158,26 @@ def main() -> int:
     whole = phase_whole_path(rng, dev)
     whole.update(phase_whole_train(rng, dev))
 
-    per_step = {k: v / TRAIN_STEPS for k, v in tr["launches"].items()}
-    per_call = {k: v / BATCHES for k, v in det["launches"].items()}
-    log(f"[launches] per train step {per_step}; per detect call {per_call}")
-    kernels = kernel_entries(train_cases, detect_cases, tr["launches"], det["launches"],
-                             adversarial, nms_later)
+    # this slice's paths, each with a generator of its own
+    detects, detect_cases = phase_other_detect(np.random.RandomState(1), dev)
+    cases.update(detect_cases)
+    four, four_cases = phase_four_step(FourStep(np.random.RandomState(2), dev))
+    cases.update(four_cases)
+    whole.update(phase_whole_four_step(np.random.RandomState(3), dev))
+
+    units = {"detect": (det, BATCHES), "train": (tr, TRAIN_STEPS)}
+    units.update({p: (info, BATCHES) for p, info in detects.items()})
+    units.update({p: (info, FOUR_STEP_TIMED) for p, info in four.items()})
+    launches = {p: {k: v // n for k, v in info["launches"].items()}
+                for p, (info, n) in units.items()}
+    log(f"[launches] per call or step {launches}")
+    kernels = kernel_entries(cases, launches, adversarial, nms_later)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels,
-                   "cases": {"train": train_cases, "detect": detect_cases,
-                             "topk_adversarial": adversarial, "nms_later_step": nms_later},
-                   "detect": det, "train": tr, "whole_path": whole}, f, indent=1)
+                   "cases": dict(cases, topk_adversarial=adversarial, nms_later_step=nms_later),
+                   "detect": det, "train": tr, "other_detect": detects, "four_step": four,
+                   "whole_path": whole}, f, indent=1)
     log(card["smi"])
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

@@ -2,9 +2,10 @@
 
 Counterpart of faster_rcnn_tpu/inference.py: backbone -> RPN -> proposals
 (8000 -> NMS -> 300) -> RoI align of all 300 at once -> detector head ->
-per-ROI argmax + class-offset NMS -> fixed (B, D) detections. On a CUDA
-device the stem conv, the proposal top-k, the RoI align and both NMS calls
-run the port's kernels (ops/*_cuda.py).
+per-ROI argmax + class-offset NMS -> fixed (B, D) detections, for every
+network of ``cfg.model.network``. On a CUDA device the ResNet stem conv,
+the proposal top-k, the RoI align and both NMS calls run the port's
+kernels (ops/*_cuda.py).
 
 The per-class NMS (voc_dets.py:76, thresh 0.5) uses the class-offset trick:
 each detection is shifted by class_id * 16384 so boxes of different classes

@@ -1,6 +1,7 @@
 """The composite Faster R-CNN module: backbone + RPN head + detector head.
 
-Counterpart of faster_rcnn_tpu/models/detector.py for ResNet-50. The three
+Counterpart of faster_rcnn_tpu/models/detector.py, for ``vgg16``,
+``resnet50`` and ``resnet101`` (``cfg.model.network``). The three
 stages are ``model.backbone(images)``, ``model.rpn(feat)`` and
 ``model.det_head(pooled)``; their submodules are named ``backbone``,
 ``rpn_head`` and ``det_head`` as in the Flax tree.
@@ -14,8 +15,9 @@ from torch import nn
 
 from faster_rcnn_tpu_torch import resolve_device
 from faster_rcnn_tpu_torch.config import FasterRcnnConfig
-from faster_rcnn_tpu_torch.models.heads import ResNetDetHead, RpnHead
+from faster_rcnn_tpu_torch.models.heads import ResNetDetHead, RpnHead, VggDetHead
 from faster_rcnn_tpu_torch.models.resnet import ResNetBackbone
+from faster_rcnn_tpu_torch.models.vgg import VGG16Backbone
 
 # ImageNet channel means in BGR order ('caffe-mode' preprocessing,
 # vgg.py:52-57, resnet.py:64-75): pixels enter the network as BGR minus these.
@@ -36,16 +38,24 @@ class FasterRCNN(nn.Module):
     def __init__(self, cfg: FasterRcnnConfig):
         super().__init__()
         m = cfg.model
-        if m.network != "resnet50":
-            raise ValueError(f"only resnet50 is ported so far, not {m.network}")
         self.cfg = cfg
         dtype = compute_dtype(cfg)
-        self.backbone = ResNetBackbone(depth=50, dtype=dtype)
+        if m.network == "vgg16":
+            backbone = VGG16Backbone(dtype=dtype)
+            det_head = VggDetHead(m.num_classes, cfg.det.pool_size, dtype=dtype)
+        elif m.network in ("resnet50", "resnet101"):
+            depth = 50 if m.network == "resnet50" else 101
+            backbone = ResNetBackbone(depth=depth, dtype=dtype)
+            det_head = ResNetDetHead(m.num_classes, depth=depth, dtype=dtype)
+        else:
+            raise ValueError(f"unknown network {m.network}")
+        # registered in this order, which init_model's draws follow
+        self.backbone = backbone
         # faster_rcnn_tpu builds its RpnHead without a dtype, so the RPN's 3x3
         # conv runs in bf16 whatever compute_dtype says (detector.py:62)
         self.rpn_head = RpnHead(m.final_conv_filters, cfg.anchors.num_anchors,
                                 dtype=torch.bfloat16)
-        self.det_head = ResNetDetHead(m.num_classes, dtype=dtype)
+        self.det_head = det_head
 
     def rpn(self, feat: torch.Tensor):
         """Feature map -> (objectness logits (B, h, w, A), bbreg (B, h, w, 4A))."""

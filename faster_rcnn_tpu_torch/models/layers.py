@@ -65,21 +65,28 @@ class Conv2d(nn.Module):
 
 
 class Dense(nn.Module):
-    """``flax.linen.Dense`` in float32; weight stored (out, in)."""
+    """``flax.linen.Dense``; weight stored (out, in). ``init_std=None`` is
+    Flax's default lecun normal. The product and the bias add run in the
+    compute dtype, one rounding each, as Flax adds the bias after the dot."""
 
-    def __init__(self, cin: int, cout: int, init_std: float):
+    def __init__(self, cin: int, cout: int, init_std: float | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.init_std = init_std
+        self.init_std, self.dtype = init_std, dtype
         self.weight = nn.Parameter(torch.empty(cout, cin))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
-            trunc_normal_(self.weight, self.init_std, generator)
+            if self.init_std is None:
+                lecun_normal_(self.weight, self.weight.shape[1], generator)
+            else:
+                trunc_normal_(self.weight, self.init_std, generator)
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.float(), self.weight, self.bias)
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
 class FrozenAffine(torch.autograd.Function):

@@ -1,9 +1,11 @@
-"""ResNet-50 backbone and the post-RoI stage-5 head.
+"""ResNet-50 / ResNet-101 backbones and the post-RoI stage-5 head.
 
-Counterpart of faster_rcnn_tpu/models/resnet.py (depth 50; the Caffe-style
-ResNet-101 waits for a later slice). Module names are the Keras layer names
-of the Flax tree (``conv1``, ``bn_conv1``, ``res2a.res2a_branch2a``,
-``res2a.bn2a_branch2a``, ...), so weights map across by name
+Counterpart of faster_rcnn_tpu/models/resnet.py. ResNet-101 is the
+Caffe-style model: bias-free convs, each batch norm followed by a channel
+scale (``scale...``), and blocks ``a, b1..b3`` in stage 3 and ``a, b1..b22``
+in stage 4. Module names are the Keras layer names of the Flax tree
+(``conv1``, ``bn_conv1``, ``res2a.res2a_branch2a``, ``res2a.bn2a_branch2a``,
+``res2a.scale2a_branch2a``, ...), so weights map across by name
 (utils/convert.py) and the freeze rules read the same names
 (:func:`resnet_param_block`, :func:`is_norm_param`). Activations are NHWC.
 """
@@ -16,54 +18,65 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from faster_rcnn_tpu_torch.models.layers import Conv2d, FrozenBatchNorm, lecun_normal_
+from faster_rcnn_tpu_torch.models.layers import (ChannelScale, Conv2d, FrozenBatchNorm,
+                                                  lecun_normal_)
 from faster_rcnn_tpu_torch.ops.conv1_cuda import conv1 as conv1_kernel
 
-_STAGES_50 = (
-    (2, ("a", "b", "c"), (64, 64, 256), 1),
-    (3, ("a", "b", "c", "d"), (128, 128, 512), 2),
-    (4, ("a", "b", "c", "d", "e", "f"), (256, 256, 1024), 2),
-)
+# (stage, blocks, filters, first stride) of stages 2-4, by depth
+_STAGES = {
+    50: ((2, ("a", "b", "c"), (64, 64, 256), 1),
+         (3, ("a", "b", "c", "d"), (128, 128, 512), 2),
+         (4, ("a", "b", "c", "d", "e", "f"), (256, 256, 1024), 2)),
+    101: ((2, ("a", "b", "c"), (64, 64, 256), 1),
+          (3, ("a", "b1", "b2", "b3"), (128, 128, 512), 2),
+          (4, ("a",) + tuple(f"b{i}" for i in range(1, 23)), (256, 256, 1024), 2)),
+}
 
 
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 with frozen BN, and a projection shortcut on the
-    first block of a stage. The stride sits on the first 1x1, as in Keras."""
+    first block of a stage. The stride sits on the first 1x1, as in Keras.
+    ``caffe``: bias-free convs and a channel scale after each batch norm
+    (ResNet-101)."""
 
     def __init__(self, cin: int, filters, stage: int, block: str, stride: int = 1,
-                 project: bool = False, dtype: torch.dtype = torch.bfloat16):
+                 project: bool = False, caffe: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         f1, f2, f3 = filters
-        nb = f"res{stage}{block}_branch"
-        bn = f"bn{stage}{block}_branch"
-        self.names = (nb, bn)
-        self.project = project
-        self.add_module(nb + "2a", Conv2d(cin, f1, 1, stride, dtype=dtype))
-        self.add_module(bn + "2a", FrozenBatchNorm(f1, dtype=dtype))
-        self.add_module(nb + "2b", Conv2d(f1, f2, 3, 1, dtype=dtype))
-        self.add_module(bn + "2b", FrozenBatchNorm(f2, dtype=dtype))
-        self.add_module(nb + "2c", Conv2d(f2, f3, 1, 1, dtype=dtype))
-        self.add_module(bn + "2c", FrozenBatchNorm(f3, dtype=dtype))
+        self.names = tuple(f"{kind}{stage}{block}_branch" for kind in ("res", "bn", "scale"))
+        self.project, self.caffe = project, caffe
+        branches = [("2a", cin, f1, 1, stride), ("2b", f1, f2, 3, 1), ("2c", f2, f3, 1, 1)]
         if project:
-            self.add_module(nb + "1", Conv2d(cin, f3, 1, stride, dtype=dtype))
-            self.add_module(bn + "1", FrozenBatchNorm(f3, dtype=dtype))
+            branches.append(("1", cin, f3, 1, stride))
+        nb, bn, sc = self.names
+        for suffix, ci, co, k, s in branches:
+            self.add_module(nb + suffix, Conv2d(ci, co, k, s, bias=not caffe, dtype=dtype))
+            self.add_module(bn + suffix, FrozenBatchNorm(co, dtype=dtype))
+            if caffe:
+                self.add_module(sc + suffix, ChannelScale(co, dtype=dtype))
+
+    def _branch(self, x: torch.Tensor, suffix: str) -> torch.Tensor:
+        nb, bn, sc = self.names
+        m = self._modules
+        y = m[bn + suffix](m[nb + suffix](x))
+        return m[sc + suffix](y) if self.caffe else y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        nb, bn = self.names
-        m = self._modules
-        y = F.relu(m[bn + "2a"](m[nb + "2a"](x)))
-        y = F.relu(m[bn + "2b"](m[nb + "2b"](y)))
-        y = m[bn + "2c"](m[nb + "2c"](y))
-        sc = m[bn + "1"](m[nb + "1"](x)) if self.project else x
+        y = F.relu(self._branch(x, "2a"))
+        y = F.relu(self._branch(y, "2b"))
+        y = self._branch(y, "2c")
+        sc = self._branch(x, "1") if self.project else x
         return F.relu(y + sc)
 
 
-def _stage(cin: int, stage: int, blocks, filters, first_stride: int, dtype) -> nn.Sequential:
+def _stage(cin: int, stage: int, blocks, filters, first_stride: int, caffe: bool,
+           dtype) -> nn.Sequential:
     seq = nn.Sequential()
     for i, b in enumerate(blocks):
         seq.add_module(f"res{stage}{b}", Bottleneck(
             cin if i == 0 else filters[2], filters, stage, b,
-            stride=first_stride if i == 0 else 1, project=(i == 0), dtype=dtype))
+            stride=first_stride if i == 0 else 1, project=(i == 0), caffe=caffe, dtype=dtype))
     return seq
 
 
@@ -94,25 +107,32 @@ class Conv1(nn.Module):
 
 class ResNetBackbone(nn.Module):
     """conv1 + stages 2-4: (B, H, W, 3) -> (B, H/16, W/16, 1024) for canvas
-    dims that are multiples of 32. Stage 1 is conv1, its batch norm, the
-    ReLU and the max-pool; stages 2-4 are the ``res{stage}*`` blocks."""
+    dims that are multiples of 32. Stage 1 is conv1, its batch norm (and
+    channel scale at depth 101), the ReLU and the max-pool; stages 2-4 are
+    the ``res{stage}*`` blocks."""
+
+    last_stage = 4
 
     def __init__(self, depth: int = 50, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if depth != 50:
-            raise ValueError(f"only ResNet-50 is ported so far, not depth {depth}")
-        self.dtype = dtype
-        self.conv1 = Conv1(use_bias=True, dtype=dtype)
+        if depth not in _STAGES:
+            raise ValueError(f"ResNet depth {depth}: 50 or 101")
+        self.dtype, self.caffe = dtype, depth == 101
+        self.conv1 = Conv1(use_bias=not self.caffe, dtype=dtype)
         self.bn_conv1 = FrozenBatchNorm(64, dtype=dtype)
+        if self.caffe:
+            self.scale_conv1 = ChannelScale(64, dtype=dtype)
         cin = 64
-        for stage, blocks, filters, stride in _STAGES_50:
-            for name, mod in _stage(cin, stage, blocks, filters, stride, dtype).named_children():
+        for stage, blocks, filters, stride in _STAGES[depth]:
+            for name, mod in _stage(cin, stage, blocks, filters, stride, self.caffe,
+                                    dtype).named_children():
                 self.add_module(name, mod)
             cin = filters[2]
 
     def _stage(self, x: torch.Tensor, stage: int) -> torch.Tensor:
         if stage == 1:
-            x = F.relu(self.bn_conv1(self.conv1(x)))
+            x = self.bn_conv1(self.conv1(x))
+            x = F.relu(self.scale_conv1(x) if self.caffe else x)
             # 3x3/s2 VALID max-pool (resnet.py:413), on the channels_last NCHW view
             return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
         for name, mod in self.named_children():
@@ -133,7 +153,7 @@ class ResNetBackbone(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor, stop_grad_stage: int = 0) -> torch.Tensor:
-        return self.run_stages(x.to(self.dtype), 1, 4, stop_grad_stage)
+        return self.run_stages(x.to(self.dtype), 1, self.last_stage, stop_grad_stage)
 
 
 class ResNetStage5(nn.Module):
@@ -141,10 +161,12 @@ class ResNetStage5(nn.Module):
     then the 7x7 mean, taken in f32 and rounded to the compute dtype as
     ``jnp.mean`` over bf16 does."""
 
-    def __init__(self, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, depth: int = 50, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
+        if depth not in _STAGES:
+            raise ValueError(f"ResNet depth {depth}: 50 or 101")
         self.dtype = dtype
-        for name, mod in _stage(1024, 5, ("a", "b", "c"), (512, 512, 2048), 1,
+        for name, mod in _stage(1024, 5, ("a", "b", "c"), (512, 512, 2048), 1, depth == 101,
                                 dtype).named_children():
             self.add_module(name, mod)
 

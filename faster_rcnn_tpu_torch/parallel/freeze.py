@@ -25,20 +25,20 @@ import torch
 from torch import nn
 
 from faster_rcnn_tpu_torch.models.resnet import is_norm_param, resnet_param_block
+from faster_rcnn_tpu_torch.models.vgg import vgg_param_block
 
 
 def param_labels(model: nn.Module, network: str, freeze_blocks: Sequence[int],
                  freeze_modules: Sequence[str] = ()) -> Dict[str, str]:
     """``{parameter name: "train" or "frozen"}`` by name, as the JAX package
     labels the same Keras-named leaves."""
-    if network not in ("resnet50", "resnet101"):
-        raise ValueError(f"only the ResNet freeze rules are ported, not {network}")
+    block_of = vgg_param_block if network == "vgg16" else resnet_param_block
 
     def label(name: str) -> str:
         path = name.split(".")
         if path[0] in freeze_modules or is_norm_param(path):
             return "frozen"
-        blk = resnet_param_block(path)
+        blk = block_of(path)
         return "frozen" if blk is not None and blk in freeze_blocks else "train"
 
     return {name: label(name) for name, _ in model.named_parameters()}

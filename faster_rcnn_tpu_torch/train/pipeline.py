@@ -1,16 +1,19 @@
 """Counterpart of faster_rcnn_tpu/train/pipeline.py: image ingest, the static
-anchor constants, proposals from the RPN, and the joint train step
-(:func:`make_joint_train_step`). The 4-step scheme's RPN and detector steps
-come with a later slice.
+anchor constants, proposals from the RPN, the 4-step scheme's RPN step
+(:func:`make_rpn_train_step`, steps 1 and 3) and detector step
+(:func:`make_det_train_step`, steps 2 and 4), and the joint train step
+(:func:`make_joint_train_step`).
 
-The joint step, in one pass over a batch:
-
-  images -> backbone (stages <= k without autograd) -> RPN head
-    -> RPN targets + anchor sampling -> RPN losses
-    -> proposals (6000 -> NMS -> 2000) from the detached RPN output
-    -> detector targets + 64-ROI sampling
-    -> RoI align on the same feature map -> detector head -> losses
-    -> backward -> freeze-aware optimizer update
+  step 1/3  images -> backbone (stages <= k without autograd) -> RPN head
+              -> RPN targets + anchor sampling -> RPN losses -> update
+  step 2/4  images -> frozen RPN (no autograd) -> proposals (6000 -> NMS
+              -> 2000) -> detector targets + 64-ROI sampling -> RoI align
+              on the detector's own backbone (step 2) or the frozen RPN's
+              map (step 4) -> detector head -> losses -> update
+  joint     images -> backbone -> RPN head -> RPN losses; proposals from
+              the detached RPN output -> detector targets + sampling ->
+              RoI align on the same map -> detector head -> losses; all
+              four minimised together
 
 Batch layout: ``image`` (B, Hc, Wc, 3) raw RGB uint8 canvases or float32
 preprocessed pixels; ``gt_boxes`` (B, G, 4) float32 resized-image coords;
@@ -155,6 +158,148 @@ def det_samples(cfg: FasterRcnnConfig, draws: Draws, rois, roi_valid, gt_boxes, 
     return take(rois), take(tg.cls_target), take(tg.reg_target), take(tg.is_pos), ok
 
 
+def _frozen_prefix(cfg: FasterRcnnConfig, freeze_blocks, freeze_modules) -> int:
+    return frozen_prefix_stage(
+        cfg.model.network, cfg.model.freeze_blocks if freeze_blocks is None else freeze_blocks,
+        freeze_modules)
+
+
+def _batch_on(batch, device):
+    """(images, gt_boxes, gt_class, gt_valid, img_hw) of a batch, on ``device``."""
+    return (ingest_images(torch.as_tensor(batch["image"], device=device)),
+            torch.as_tensor(batch["gt_boxes"], device=device).float(),
+            torch.as_tensor(batch["gt_class"], device=device).long(),
+            torch.as_tensor(batch["gt_valid"], device=device).bool(),
+            torch.as_tensor(batch["img_hw"], device=device).long())
+
+
+def _draws_on(cfg: FasterRcnnConfig, draws, b: int, device) -> Draws:
+    if isinstance(draws, torch.Generator):
+        draws = draw_samples(cfg, b, draws)
+    return Draws(*(t.to(device) for t in draws))
+
+
+def _backbone(model: FasterRCNN, images: torch.Tensor, sg_stage: int, mark) -> torch.Tensor:
+    """The model's backbone, stages <= ``sg_stage`` without autograd."""
+    backbone = model.backbone
+    x = backbone.run_stages(images.to(backbone.dtype), 1, sg_stage, sg_stage)
+    mark("frozen_prefix")
+    return backbone.run_stages(x, sg_stage + 1, backbone.last_stage, sg_stage)
+
+
+def _det_losses(cfg: FasterRcnnConfig, model: FasterRCNN, feat, rois, cls_t, reg_t, pos_m, ok):
+    """RoI align of the sampled ROIs on ``feat``, the detector head, and its
+    losses with images that have no eligible ROI scaled to 0 (the reference
+    skips them): the batch means (det_cls, det_reg)."""
+    pooled = roi_align(feat.contiguous(), rois.contiguous(), cfg.det.pool_size)
+    dcls, dreg = model.det_head(pooled)
+    s = ok.float()
+    l_cls = loss_ops.det_cls_loss(dcls, cls_t) * s
+    l_reg = loss_ops.det_reg_loss(dreg, reg_t, cls_t, pos_m, cfg.model.num_classes) * s
+    return l_cls.mean(), l_reg.mean()
+
+
+def _update(optimizer: FreezeAwareOptimizer, metrics: dict, mark) -> dict:
+    """Backward of the sum of the losses in ``metrics`` and the optimizer's
+    step; returns the detached losses and ``loss``, their sum."""
+    loss = sum(metrics.values())
+    optimizer.zero_grad()
+    loss.backward()
+    mark("backward")
+    optimizer.step()
+    mark("optimizer")
+    return dict({k: v.detach() for k, v in metrics.items()}, loss=loss.detach())
+
+
+def _no_mark(_: str) -> None:
+    pass
+
+
+def make_rpn_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
+                        optimizer: FreezeAwareOptimizer, freeze_blocks=None,
+                        freeze_modules=(), device=None):
+    """The RPN train step of the 4-step scheme (steps 1 and 3), faster_rcnn_tpu's
+    ``make_rpn_train_step`` (pipeline.py:119-165): backbone, RPN head, RPN
+    targets and losses, backward and the freeze-aware update.
+
+    Returns ``step(batch, draws, mark=None) -> metrics`` (``rpn_cls``,
+    ``rpn_reg``, ``loss``); ``draws`` and ``mark`` as for
+    :func:`make_joint_train_step`, of which only the RPN sampler's draws
+    are read. ``freeze_blocks``/``freeze_modules`` are the spec the
+    optimizer was built with (``train.trainer.step_freeze_spec``); the
+    backbone runs its frozen prefix without autograd, all of it in step 3.
+    Runs on CUDA unless ``device="cpu"``.
+    """
+    device = resolve_device(device)
+    model = model.to(device)
+    consts = build_constants(cfg, device)
+    sg_stage = _frozen_prefix(cfg, freeze_blocks, freeze_modules)
+
+    def step(batch, draws, mark: Callable[[str], None] | None = None):
+        mark = mark or _no_mark
+        images, gt_boxes, _, gt_valid, img_hw = _batch_on(batch, device)
+        draws = _draws_on(cfg, draws, images.shape[0], device)
+        feat = _backbone(model, images, sg_stage, mark)
+        cls_logits, bbreg = model.rpn(feat)
+        mark("backbone_rpn")
+        l_cls, l_reg = rpn_losses(cfg, consts, draws, cls_logits, bbreg, gt_boxes, gt_valid,
+                                  img_hw)
+        mark("rpn_targets_losses")
+        return _update(optimizer, {"rpn_cls": l_cls.mean(), "rpn_reg": l_reg.mean()}, mark)
+
+    return step
+
+
+def make_det_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
+                        optimizer: FreezeAwareOptimizer, rpn_model: FasterRCNN,
+                        heads_only: bool = False, freeze_blocks=None, freeze_modules=(),
+                        device=None):
+    """The detector train step of the 4-step scheme (steps 2 and 4),
+    faster_rcnn_tpu's ``make_det_train_step`` (pipeline.py:232-310).
+
+    ``rpn_model`` is the frozen RPN (the JAX step's ``rpn_vars``): its
+    backbone, RPN head and proposals run without autograd. Then the
+    detector's targets and 64-ROI sample, RoI align, the detector head and
+    the losses. ``heads_only=False`` (step 2): RoI align reads the map of
+    ``model``'s own backbone, which trains above its frozen prefix.
+    ``heads_only=True`` (step 4): RoI align reads the frozen RPN's map,
+    ``model``'s backbone does not run, and only the head trains.
+
+    Returns ``step(batch, draws, mark=None) -> metrics`` (``det_cls``,
+    ``det_reg``, ``num_valid_images``, ``loss``); ``draws`` and ``mark`` as
+    for :func:`make_joint_train_step`, of which only the ROI sampler's draws
+    are read. Runs on CUDA unless ``device="cpu"``.
+    """
+    device = resolve_device(device)
+    model = model.to(device)
+    rpn_model = rpn_model.to(device)
+    consts = build_constants(cfg, device)
+    posv = _position_validity(cfg, device)
+    sg_stage = _frozen_prefix(cfg, freeze_blocks, freeze_modules)
+
+    def step(batch, draws, mark: Callable[[str], None] | None = None):
+        mark = mark or _no_mark
+        images, gt_boxes, gt_class, gt_valid, img_hw = _batch_on(batch, device)
+        draws = _draws_on(cfg, draws, images.shape[0], device)
+        with torch.no_grad():
+            feat_rpn, pboxes, _, pvalid = rpn_forward_proposals(
+                cfg, rpn_model, images, img_hw, cfg.rpn.train_pre_nms, cfg.rpn.train_post_nms,
+                consts=consts, posv=posv)
+        mark("rpn_proposals")
+        rois, cls_t, reg_t, pos_m, ok = det_samples(cfg, draws, pboxes, pvalid, gt_boxes,
+                                                    gt_class, gt_valid)
+        mark("det_targets")
+        feat = feat_rpn if heads_only else _backbone(model, images, sg_stage, mark)
+        if not heads_only:
+            mark("backbone")
+        l_cls, l_reg = _det_losses(cfg, model, feat, rois, cls_t, reg_t, pos_m, ok)
+        mark("roi_align_head")
+        return dict(_update(optimizer, {"det_cls": l_cls, "det_reg": l_reg}, mark),
+                    num_valid_images=ok.sum())
+
+    return step
+
+
 def make_joint_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
                           optimizer: FreezeAwareOptimizer, freeze_blocks=None,
                           freeze_modules=(), device=None):
@@ -178,28 +323,16 @@ def make_joint_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
     model = model.to(device)
     consts = build_constants(cfg, device)
     posv = _position_validity(cfg, device)
-    sg_stage = frozen_prefix_stage(
-        cfg.model.network, cfg.model.freeze_blocks if freeze_blocks is None else freeze_blocks,
-        freeze_modules)
+    sg_stage = _frozen_prefix(cfg, freeze_blocks, freeze_modules)
     stride = cfg.model.stride
 
     def step(batch, draws, mark: Callable[[str], None] | None = None):
-        mark = mark or (lambda _: None)
-        images = ingest_images(torch.as_tensor(batch["image"], device=device))
-        gt_boxes = torch.as_tensor(batch["gt_boxes"], device=device).float()
-        gt_class = torch.as_tensor(batch["gt_class"], device=device).long()
-        gt_valid = torch.as_tensor(batch["gt_valid"], device=device).bool()
-        img_hw = torch.as_tensor(batch["img_hw"], device=device).long()
-        if isinstance(draws, torch.Generator):
-            draws = draw_samples(cfg, images.shape[0], draws)
-        draws = Draws(*(t.to(device) for t in draws))
-
-        backbone = model.backbone
-        x = backbone.run_stages(images.to(backbone.dtype), 1, sg_stage, sg_stage)
-        mark("frozen_prefix")
-        feat = backbone.run_stages(x, sg_stage + 1, 4, sg_stage)
+        mark = mark or _no_mark
+        images, gt_boxes, gt_class, gt_valid, img_hw = _batch_on(batch, device)
+        draws = _draws_on(cfg, draws, images.shape[0], device)
+        feat = _backbone(model, images, sg_stage, mark)
         cls_logits, bbreg = model.rpn(feat)
-        mark("stage4_rpn")
+        mark("backbone_rpn")
 
         l_rcls, l_rreg = rpn_losses(cfg, consts, draws, cls_logits, bbreg, gt_boxes, gt_valid,
                                     img_hw)
@@ -214,23 +347,10 @@ def make_joint_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
         rois, cls_t, reg_t, pos_m, ok = det_samples(cfg, draws, props.boxes, props.valid,
                                                     gt_boxes, gt_class, gt_valid)
         mark("det_targets")
-
-        pooled = roi_align(feat.contiguous(), rois.contiguous(), cfg.det.pool_size)
-        dcls, dreg = model.det_head(pooled)
-        s = ok.float()
-        l_dcls = loss_ops.det_cls_loss(dcls, cls_t) * s
-        l_dreg = loss_ops.det_reg_loss(dreg, reg_t, cls_t, pos_m, cfg.model.num_classes) * s
-        metrics = {"rpn_cls": l_rcls.mean(), "rpn_reg": l_rreg.mean(),
-                   "det_cls": l_dcls.mean(), "det_reg": l_dreg.mean()}
-        loss = metrics["rpn_cls"] + metrics["rpn_reg"] + metrics["det_cls"] + metrics["det_reg"]
+        l_dcls, l_dreg = _det_losses(cfg, model, feat, rois, cls_t, reg_t, pos_m, ok)
         mark("roi_align_head")
-
-        optimizer.zero_grad()
-        loss.backward()
-        mark("backward")
-        optimizer.step()
-        mark("optimizer")
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return dict(metrics, num_valid_images=ok.sum(), loss=loss.detach())
+        metrics = {"rpn_cls": l_rcls.mean(), "rpn_reg": l_rreg.mean(),
+                   "det_cls": l_dcls, "det_reg": l_dreg}
+        return dict(_update(optimizer, metrics, mark), num_valid_images=ok.sum())
 
     return step

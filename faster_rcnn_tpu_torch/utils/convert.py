@@ -2,7 +2,9 @@
 
 The port's module names are the Flax tree's Keras layer names, so the
 mapping is by path: ``params/backbone/res2a/res2a_branch2a/kernel`` becomes
-``backbone.res2a.res2a_branch2a.weight``. The tree arrives as nested dicts of
+``backbone.res2a.res2a_branch2a.weight``, for every network: VGG16's
+``block*_conv*`` and ``fc1``/``fc2``, ResNet-101's ``scale*`` channel
+scales and bias-free convs. The tree arrives as nested dicts of
 numpy arrays, so this module needs no JAX.
 """
 
@@ -13,8 +15,6 @@ from typing import Dict
 import numpy as np
 import torch
 
-from faster_rcnn_tpu_torch.config import FasterRcnnConfig
-
 
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
@@ -24,16 +24,14 @@ def _flatten(tree, prefix=()):
             yield prefix + (str(k),), v
 
 
-def from_flax_numpy(variables_np, cfg: FasterRcnnConfig) -> Dict[str, torch.Tensor]:
+def from_flax_numpy(variables_np) -> Dict[str, torch.Tensor]:
     """``{"params": ..., "batch_stats": ...}`` of numpy arrays -> a state
     dict for :class:`faster_rcnn_tpu_torch.models.detector.FasterRCNN`.
 
     Conv kernels go HWIO -> OIHW, dense kernels (in, out) -> (out, in),
-    ``batch_stats`` mean/var become the batch-norm buffers; BN ``scale`` and
-    every ``bias`` keep their names.
+    ``batch_stats`` mean/var become the batch-norm buffers; the ``scale``
+    of a batch norm or channel scale and every ``bias`` keep their names.
     """
-    if cfg.model.network != "resnet50":
-        raise ValueError(f"only resnet50 weights convert so far, not {cfg.model.network}")
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables_np.get(collection, {})):

@@ -13,9 +13,12 @@ import pytest
 import torch
 
 from chip_smoke import conv1_integer_mismatches, topk_adversarial
-from faster_rcnn_tpu_torch import _build
+from faster_rcnn_tpu_torch import _build, config
+from faster_rcnn_tpu_torch.models.detector import init_model
+from faster_rcnn_tpu_torch.models.resnet import Conv1
 from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda, sort, sort_cuda
 from faster_rcnn_tpu_torch.parallel.freeze import make_optimizer
+from faster_rcnn_tpu_torch.train import pipeline, trainer
 
 pytestmark = pytest.mark.gpu
 
@@ -240,8 +243,8 @@ def test_roi_align_backward_kernel_matches_plain(cuda, dtype, rel):
 
 
 @pytest.mark.parametrize("kind", ["sampled", "small_crops", "zero_frac", "last_row_and_column",
-                                  "untouched_rows", "hot_row", "flat_rois", "chunks_and_many_rois",
-                                  "rois_512_wide"])
+                                  "untouched_rows", "hot_row", "flat_rois", "vgg_channels",
+                                  "chunks_and_many_rois", "rois_512_wide"])
 def test_roi_align_backward_kernel_is_its_model_bit_for_bit(cuda, kind):
     """The kernel against the numpy model of its algorithm
     (tests/test_torch_roi_align_bwd.py), on the model's edge cases: f32 bit
@@ -351,3 +354,101 @@ def test_wrappers_count_launches_and_reject_bad_input(cuda):
         sort_cuda.topk_sorted(torch.zeros(2, 100, dtype=torch.float64, device=cuda), 10)
     with pytest.raises(ValueError):
         sort_cuda.topk_sorted(torch.zeros(1, 40000, device=cuda), 20000)
+
+
+def test_stem_without_bias_matches_plain(cuda):
+    """ResNet-101's bias-free stem (Conv1(use_bias=False)) through the
+    kernel, at a canvas of two row blocks and two column blocks."""
+    rng = np.random.RandomState(8)
+    stem = Conv1(use_bias=False).to(cuda)
+    assert stem.bias is None
+    with torch.no_grad():
+        stem.weight.copy_(torch.tensor(rng.standard_normal((64, 3, 7, 7)) * 0.1))
+        x = torch.tensor(rng.uniform(-100, 100, (2, 34, 290, 3)), dtype=torch.float32,
+                         device=cuda)
+        before = _build.LAUNCHES["conv1"]
+        got = stem(x)
+        torch.cuda.synchronize()
+    assert _build.LAUNCHES["conv1"] == before + 1 and got.dtype == torch.bfloat16
+    w_hwio = stem.weight.to(torch.bfloat16).permute(2, 3, 1, 0).contiguous()
+    _close(got, conv1_cuda.conv1_plain(x.to(torch.bfloat16), w_hwio), 1e-2)
+
+
+def test_roi_align_at_the_vgg_step2_input(cuda):
+    """K1 forward and backward on a VGG16 step-2 input (16 x 64 ROIs over a
+    38x94x512 bf16 map: two 256-channel chunks a map row) against their
+    plain versions, the backward twice with the same bits, and on two of
+    the images bit for bit against the numpy model of its algorithm."""
+    from tests.test_torch_roi_align_bwd import model_bf16
+
+    rng = np.random.RandomState(9)
+    b, h, w, c, r = 16, 38, 94, 512, 64
+    rois = _bwd_rois(rng, b, h, w, r)
+    rois[:, r // 2:] = rois[:, :r - r // 2]  # repeated ROIs, as the sampler draws
+    t_rois = torch.tensor(rois, device=cuda)
+    feat = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=torch.bfloat16, device=cuda)
+    _close(roi_align_cuda.roi_align(feat, t_rois, 7),
+           roi_align_cuda.roi_align_plain(feat, t_rois, 7), 1e-2)
+    g = torch.tensor(rng.standard_normal((b, r, 7, 7, c)), dtype=torch.bfloat16, device=cuda)
+    got = roi_align_cuda.roi_align_backward(g, t_rois, (b, h, w, c), 7)
+    again = roi_align_cuda.roi_align_backward(g, t_rois, (b, h, w, c), 7)
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    _close(got, roi_align_cuda.roi_align_backward_plain(g, t_rois, (b, h, w, c),
+                                                        torch.bfloat16, 7), 1e-2)
+    want = model_bf16(g[:2].float().cpu().numpy(), rois[:2], h, w)
+    assert torch.equal(got[:2].cpu().view(torch.int16), want.view(torch.int16))
+
+
+def _small_config(network: str) -> config.FasterRcnnConfig:
+    """A 256x384 canvas with 4 anchor shapes: 1,536 anchors, more than the
+    RPN sampler's top-k (256) and the proposals' (256) take, so both run
+    the top-k kernel, as at the KITTI canvas."""
+    return config.FasterRcnnConfig(
+        anchors=config.AnchorConfig(scales=(16, 32), ratios=((1, 1), (2, 1))),
+        rpn=config.RpnConfig(train_pre_nms=256, train_post_nms=64, infer_pre_nms=256,
+                             infer_post_nms=32),
+        det=config.DetConfig(num_rois=16),
+        data=config.DataConfig(canvas_h=256, canvas_w=384, max_gt_boxes=8, resize_min=192,
+                               resize_max=384),
+        model=config.ModelConfig(network=network, num_classes=6, freeze_blocks=(1, 2)))
+
+
+def _small_batch(b: int = 2) -> dict:
+    rng = np.random.RandomState(3)
+    boxes = np.zeros((b, 8, 4), np.float32)
+    boxes[:, :3] = [[5, 5, 60, 80], [120, 40, 260, 160], [200, 100, 380, 250]]
+    valid = np.zeros((b, 8), bool)
+    valid[:, :3] = True
+    return {"image": rng.randint(0, 256, (b, 256, 384, 3)).astype(np.uint8), "gt_boxes": boxes,
+            "gt_class": np.ones((b, 8), np.int32), "gt_valid": valid,
+            "img_hw": np.array([[256, 384]] * b, np.int32)}
+
+
+@pytest.mark.parametrize("network", ["vgg16", "resnet101"])
+def test_four_step_train_steps_run_on_cuda_by_default(cuda, network):
+    """The RPN and detector steps, built without a device, run on the card
+    through the kernels: the RPN step's sampler launches K4 twice; step 2
+    launches K4 and K3 for the frozen RPN's proposals, K1 and the K1
+    backward; step 4 all but the K1 backward."""
+    cfg = _small_config(network)
+    rpn = init_model(1, cfg)
+    assert all(p.is_cuda for p in rpn.parameters())
+    want = {1: {"topk": 2}, 2: {"topk": 1, "nms": 1, "roi_align": 1, "roi_align_bwd": 1},
+            4: {"topk": 1, "nms": 1, "roi_align": 1}}
+    if network == "resnet101":  # the bias-free stem, once per backbone run
+        want = {1: dict(want[1], conv1=1), 2: dict(want[2], conv1=2), 4: dict(want[4], conv1=1)}
+    for step in (1, 2, 4):
+        model = init_model(0, cfg)
+        fb, fm = trainer.step_freeze_spec(step, cfg)
+        opt = make_optimizer(model, network, fb, 1e-3, freeze_modules=fm)
+        if step == 1:
+            run = pipeline.make_rpn_train_step(cfg, model, opt, fb, fm)
+        else:
+            run = pipeline.make_det_train_step(cfg, model, opt, rpn, heads_only=step == 4,
+                                               freeze_blocks=fb, freeze_modules=fm)
+        _build.reset_launches()
+        metrics = run(_small_batch(), torch.Generator(device=cuda).manual_seed(step))
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        assert got == want[step], (step, got)
+        assert all(v.is_cuda and bool(torch.isfinite(v).all()) for v in metrics.values())

@@ -71,7 +71,7 @@ def build_pair(seed=0):
     vnp = redraw_norm_layers(jax.tree_util.tree_map(np.asarray, variables), seed)
     tcfg_ = port_config(jcfg)
     tmodel = FasterRCNN(tcfg_)
-    tmodel.load_state_dict(from_flax_numpy(vnp, tcfg_), strict=True)
+    tmodel.load_state_dict(from_flax_numpy(vnp), strict=True)
     return jcfg, tcfg_, model, vnp, tmodel.eval()
 
 
@@ -92,7 +92,7 @@ def _close(got, want, rel_tol=REL_TOL):
 class TestConvert:
     def test_every_leaf_maps_by_name_with_layouts(self, pair):
         _, tc, _, vnp, tmodel = pair
-        sd = from_flax_numpy(vnp, tc)
+        sd = from_flax_numpy(vnp)
         assert set(sd) == set(tmodel.state_dict())
         k = vnp["params"]["backbone"]["res2a"]["res2a_branch2b"]["kernel"]  # HWIO
         np.testing.assert_array_equal(sd["backbone.res2a.res2a_branch2b.weight"].numpy(),
@@ -105,14 +105,14 @@ class TestConvert:
     def test_unknown_leaf_raises(self, pair):
         _, tc, _, _, _ = pair
         with pytest.raises(ValueError):
-            from_flax_numpy({"params": {"backbone": {"x": {"gamma": np.ones(3)}}}}, tc)
+            from_flax_numpy({"params": {"backbone": {"x": {"gamma": np.ones(3)}}}})
 
     def test_init_model_seeded_and_named_like_flax(self, pair):
         _, tc, _, vnp, _ = pair
         a = init_model(3, tc, device="cpu").state_dict()
         b = init_model(3, tc, device="cpu").state_dict()
         c = init_model(4, tc, device="cpu").state_dict()
-        sd = from_flax_numpy(vnp, tc)
+        sd = from_flax_numpy(vnp)
         assert set(a) == set(sd)
         for k in a:
             assert a[k].shape == sd[k].shape, k

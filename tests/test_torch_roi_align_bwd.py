@@ -144,6 +144,10 @@ def roi_case(kind: str, seed: int = 0):
         # 300 ROIs: batches of 128, 128 and 44, whose rows hold more entries
         # than a batch's buffer (128 P P), taken in two rounds
         h, w, c, r = 3, 40, 264, 300
+    elif kind == "vgg_channels":
+        # a VGG16 map's 512 channels: each row in two chunks of 256 bf16
+        # channels (four of 128 f32), each listing and sorting the row again
+        c, r = 512, 24
     elif kind == "rois_512_wide":
         # 512 ROIs (four batches), common in ROI heads; on the card a bf16
         # row's carried sums need 140 KB, more than fits beside a batch, so
@@ -184,14 +188,15 @@ def roi_case(kind: str, seed: int = 0):
     elif kind == "flat_rois":  # 1 row tall, 10 wide: row 1 holds more entries than R P P
         w = 12
         rois[:] = [[k % 3, 1, k % 3 + 10, 2] for k in range(r)]
-    elif kind not in ("sampled", "chunks_and_many_rois", "rois_512_wide"):
+    elif kind not in ("sampled", "vgg_channels", "chunks_and_many_rois", "rois_512_wide"):
         raise ValueError(kind)
     g = rng.standard_normal((b, r, 7, 7, c)).astype(np.float32)
     return (b, h, w, c), rois, g
 
 
 CASES = ["sampled", "repeated", "small_crops", "zero_frac", "last_row_and_column",
-         "untouched_rows", "hot_row", "flat_rois", "chunks_and_many_rois", "rois_512_wide"]
+         "untouched_rows", "hot_row", "flat_rois", "vgg_channels", "chunks_and_many_rois",
+         "rois_512_wide"]
 
 
 def _max_rel(got, want) -> float:

@@ -401,7 +401,7 @@ def r50():
 
 def _port_model(tc, vnp):
     m = FasterRCNN(tc)
-    m.load_state_dict(from_flax_numpy(vnp, tc), strict=True)
+    m.load_state_dict(from_flax_numpy(vnp), strict=True)
     return m
 
 
@@ -474,8 +474,8 @@ class TestFreeze:
                 p.grad = _t(g.transpose(3, 2, 0, 1) if g.ndim == 4 else g.T if g.ndim == 2
                             else g) if p.requires_grad else None
             opt.step()
-        want = from_flax_numpy({"params": jax.tree_util.tree_map(np.asarray, jp)}, tc)
-        before = from_flax_numpy({"params": params}, tc)
+        want = from_flax_numpy({"params": jax.tree_util.tree_map(np.asarray, jp)})
+        before = from_flax_numpy({"params": params})
         for n, p in named.items():
             if opt.labels[n] == "frozen":
                 assert not p.requires_grad and torch.equal(p.detach(), before[n]), n
@@ -499,16 +499,20 @@ class TestFreeze:
 # ---------------------------------------------------------------------------
 
 
-def jax_draws(keys, cfg) -> tpipe.Draws:
-    """The draws of the JAX joint step's samplers, from its own keys:
-    fold_in(k, 0) for the RPN sampler (split at sampling.py:60),
-    fold_in(k, 1) for the ROI sampler (split at sampling.py:99)."""
+def jax_draws(keys, cfg, fold: bool = True) -> tpipe.Draws:
+    """The draws of a JAX train step's samplers, from its own keys. The
+    joint step folds each image's key: fold_in(k, 0) for the RPN sampler
+    (split at sampling.py:60), fold_in(k, 1) for the ROI sampler (split at
+    sampling.py:99). The RPN and detector steps of the 4-step scheme hand
+    the key to the sampler as it is (``fold=False``)."""
     n = cfg.conv_h * cfg.conv_w * cfg.anchors.num_anchors
     k, r = cfg.rpn.train_post_nms, cfg.det.num_rois
     cols = [[] for _ in range(6)]
     for key in keys:
-        kp, kn = jax.random.split(jax.random.fold_in(key, 0))
-        dp, dn, dr = jax.random.split(jax.random.fold_in(key, 1), 3)
+        rpn_key, det_key = ((jax.random.fold_in(key, 0), jax.random.fold_in(key, 1)) if fold
+                            else (key, key))
+        kp, kn = jax.random.split(rpn_key)
+        dp, dn, dr = jax.random.split(det_key, 3)
         for col, x in zip(cols, (_uniform(kp, n), _uniform(kn, n), _uniform(dp, k),
                                  _uniform(dn, k)) + _bits(dr, r)):
             col.append(x)
@@ -568,7 +572,7 @@ def joint(r50):
             got.append({k: v.numpy() for k, v in tstep(tbatch, jax_draws(keys, tc)).items()})
             grads_seen.append({n for n, p in tmodel.named_parameters() if p.grad is not None})
             after.append((from_flax_numpy({"params": jax.tree_util.tree_map(
-                np.asarray, state.params)}, tc),
+                np.asarray, state.params)}),
                 {n: p.detach().clone() for n, p in tmodel.named_parameters()}))
         out[label] = (opt, before, want, got, after, grads_seen)
     return out
