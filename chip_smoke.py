@@ -31,7 +31,23 @@ Phases, each of which fails the run on any error:
      per step 2 warm-up and 3 timed steps, launches, stage times, peak
      memory; then steps 1, 2 and 4 at B=2 in f32, kernels against plain
      versions on the card;
-  9. a JSON line listing every kernel, then the JSON result line.
+  9. loader_train, the user's workflow from JPEGs on disk: a KITTI-synthetic
+     dataset (64 train, 16 val frames at 1242x375) written to a temporary
+     directory; cli.train --step all on VGG16 at the 608x1504 canvas, B=16,
+     loader-fed (each step's rate over LOADER_TIMED iterations, from the
+     first after 2 warm-up ones at which the loader held no batch ready,
+     then two profiled iterations, then one checkpoint); step 1 again with more
+     iterations, which must resume; cli.train --step joint on ResNet-50;
+     cli.detect --from_step 4 on the val frames and cli.evaluate. Each
+     step, the joint run and the detect run is a path of this slice: its
+     launches are counted over the whole run, and the kernels are checked
+     against their plain versions on one iteration's inputs. It prints the
+     loader-fed rates beside the in-memory ones of phases 5 and 8, the
+     decoder (native or PIL, and why), the CPU and worker counts, the
+     loader's own rate, the time the trainer waited for batches, the
+     checkpoints' write time and size, and the device-busy share of the
+     profiled iterations;
+ 10. a JSON line listing every kernel, then the JSON result line.
 
 It needs CUDA and the faster_rcnn_tpu_torch package beside it; without
 either it exits non-zero and prints no result.
@@ -41,10 +57,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -59,8 +78,15 @@ from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda,
 from faster_rcnn_tpu_torch.ops import proposals as prop_ops
 from faster_rcnn_tpu_torch.ops.roi_align_taps import roi_axes, row_hits, tap_counts
 from faster_rcnn_tpu_torch.parallel.freeze import make_optimizer
-from faster_rcnn_tpu_torch.train import pipeline
+from faster_rcnn_tpu_torch.cli import detect as cli_detect
+from faster_rcnn_tpu_torch.cli import evaluate as cli_evaluate
+from faster_rcnn_tpu_torch.cli import train as cli_train
+from faster_rcnn_tpu_torch.data import kitti_synth, native_loader
+from faster_rcnn_tpu_torch.data import pipeline as data_pipeline
+from faster_rcnn_tpu_torch.data.voc import KITTI_CLASS_MAPPING, load_dataset
+from faster_rcnn_tpu_torch.train import pipeline, trainer
 from faster_rcnn_tpu_torch.train.trainer import merge_params, step_freeze_spec
+from faster_rcnn_tpu_torch.utils import checkpoint
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
@@ -88,8 +114,17 @@ PATHS = {
     "step3": ({"topk": 2}, (), _RPN_SAMPLER),
     "step4": ({"roi_align": 1, "nms": 1, "topk": 1}, ("proposal NMS",), ("proposals",)),
 }
-# this slice's paths: the kernels line's totals are over one run of each
-MAIN_PATHS = ("step1", "step2", "step3", "step4", "vgg16_detect", "resnet101_detect")
+# the loader-fed runs of phase 9 launch what the same paths launch in memory
+PATHS.update({f"loader_step{s}": PATHS[f"step{s}"] for s in (1, 2, 3, 4)})
+PATHS.update(loader_joint=PATHS["train"], loader_detect=PATHS["vgg16_detect"])
+# this slice's paths: the kernels line's launches are over the whole run of
+# each, its times over one iteration's (one call's) kernel calls
+MAIN_PATHS = ("loader_step1", "loader_step2", "loader_step3", "loader_step4", "loader_joint",
+              "loader_detect")
+LOADER_BATCH = 16           # images a batch, as in the in-memory phases
+LOADER_WARMUP = 2
+LOADER_TIMED, LOADER_PROFILED = 16, 2  # 16: two rounds of the 8 workers a chip host runs
+LOADER_TRAIN, LOADER_VAL = 64, 16
 SOURCES = {"conv1": ("conv1.cu", "faster_rcnn_tpu/ops/conv1_pallas.py:262"),
            "roi_align": ("roi_align.cu", "faster_rcnn_tpu/ops/roi_align_pallas.py:178"),
            "roi_align_bwd": ("roi_align.cu", "faster_rcnn_tpu/ops/roi_align_pallas.py:213"),
@@ -1125,6 +1160,323 @@ def phase_whole_four_step(rng, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 9: loader_train, the user's workflow from JPEGs on disk
+# --------------------------------------------------------------------------
+
+
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept, to read what a CLI printed."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, text):
+        self.text.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+class LoaderRun:
+    """Instruments the trainer while the CLIs run, without changing what
+    they do. Each ``train_one_step`` is a path whose kernel launches are
+    counted from its start to its end. Its loader's batches are counted as
+    the workers make them and as the trainer takes them, with the time each
+    take waited; the backlog a take found is the batches made and not yet
+    taken. The timed window is LOADER_TIMED iterations on the host clock
+    between two synchronizes. It starts at the first iteration after
+    LOADER_WARMUP whose batch found no backlog, so that no batch made
+    before the window is counted in it, or at ``latest`` if the loader
+    stays ahead of the card. The inputs of every kernel call of its first
+    iteration are recorded (counted, as the path's own launches), and the
+    LOADER_PROFILED iterations after it run under torch.profiler. Every
+    checkpoint write is timed after a synchronize."""
+
+    def __init__(self, latest: int):
+        self.latest = latest
+        self.info: dict = {}      # path -> what its run measured
+        self.calls: dict = {}     # path -> the recorded kernel calls
+        self.path = None
+        self.capturing = False
+        self.prof = None
+        self.loaders: list = []
+        self.lock = threading.Lock()
+        self.made = 0             # batches this run's workers made
+        self.takes: list = []     # per batch taken: (backlog found, seconds waited)
+        self.old: set = set()     # threads that are not this run's workers
+
+    def _record(self, name, fn):
+        def wrapped(*args, **kw):
+            if self.capturing:
+                self.calls.setdefault(self.path, {}).setdefault(name, []).append((args, kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    def _train_one_step(self, orig):
+        def run(step, *a, **k):
+            self.path = f"loader_step{step}" if isinstance(step, int) else "loader_joint"
+            if self.path in self.info:  # a second run of the step: the resume
+                self.path += "_resumed"
+            info = self.info[self.path] = {"checkpoints": [], "iterations": 0}
+            # a closed loader's workers may still finish a batch: not counted
+            self.old, self.made, self.takes = set(threading.enumerate()), 0, []
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            result = orig(step, *a, **k)
+            torch.cuda.synchronize()
+            info.update(run_s=time.perf_counter() - t0, launches=dict(_build.LAUNCHES),
+                        final_metrics=result.final_metrics)
+            return result
+        return run
+
+    def _stack(self, orig):
+        def stack(examples):
+            out = orig(examples)
+            if threading.current_thread() not in self.old:
+                with self.lock:
+                    self.made += 1
+            return out
+        return stack
+
+    def _make_step(self, orig):
+        def build(*a, **k):
+            fn = orig(*a, **k)
+
+            def step(batch, draws):
+                info = self.info[self.path]
+                i, start = info["iterations"], info.get("start")
+                info["iterations"] = i + 1
+                if start is None and i >= LOADER_WARMUP and (
+                        self.takes[i][0] == 0 or i == self.latest):
+                    torch.cuda.synchronize()
+                    info.update(t0=time.perf_counter(), start=i, backlog_at_start=self.takes[i][0],
+                                made_at_start=self.made)
+                    self.capturing = True
+                elif start is not None and i == start + LOADER_TIMED:
+                    torch.cuda.synchronize()
+                    info.update(t1=time.perf_counter(),
+                                made=self.made - info.pop("made_at_start"),
+                                wait_s=sum(w for _, w in self.takes[start + 1:i + 1]))
+                    self.prof = torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+                    self.prof.__enter__()
+                out = fn(batch, draws)
+                self.capturing = False
+                if start is not None and i == start + LOADER_TIMED + LOADER_PROFILED - 1:
+                    torch.cuda.synchronize()
+                    self.prof.__exit__(None, None, None)
+                    info["profiled"] = device_busy(self.prof)
+                    self.prof = None
+                return out
+            return step
+        return build
+
+    def _save(self, orig):
+        def save(directory, step, tree, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig(directory, step, tree, **kw)
+            self.info[self.path]["checkpoints"].append({
+                "step": step, "seconds": time.perf_counter() - t0,
+                "bytes": _dir_bytes(os.path.join(directory, str(step)))})
+        return save
+
+    def _loader(self, *a, **k):
+        loader = data_pipeline.TrainLoader(*a, **k)
+        self.loaders.append(loader)
+        return _TakenLoader(loader, self)
+
+    @contextlib.contextmanager
+    def patched(self):
+        patches = [(trainer, "train_one_step", self._train_one_step(trainer.train_one_step)),
+                   (trainer, "TrainLoader", self._loader),
+                   (data_pipeline, "_stack", self._stack(data_pipeline._stack)),
+                   (checkpoint, "save", self._save(checkpoint.save))]
+        patches += [(pipeline, name, self._make_step(getattr(pipeline, name)))
+                    for name in ("make_rpn_train_step", "make_det_train_step",
+                                 "make_joint_train_step")]
+        patches += [(mod, attr, self._record(name, fn)) for mod, attr, name, fn in (
+            (resnet, "conv1_kernel", "conv1", conv1_cuda.conv1),
+            (inference, "roi_align", "roi_align", roi_align_cuda.roi_align),
+            (pipeline, "roi_align", "roi_align", roi_align_cuda.roi_align),
+            (roi_align_cuda, "roi_align_backward", "roi_align_bwd",
+             roi_align_cuda.roi_align_backward),
+            (nms_cuda, "nms_keep_mask", "nms", nms_cuda.nms_keep_mask),
+            (sort_cuda, "topk_sorted", "topk", sort_cuda.topk_sorted))]
+        with contextlib.ExitStack() as stack:
+            for mod, attr, fn in patches:
+                stack.enter_context(mock.patch.object(mod, attr, fn))
+            yield
+
+    def cli(self, main, argv):
+        """A CLI's main under the instrumentation, its output kept."""
+        tee = _Tee(sys.stdout)
+        with self.patched(), contextlib.redirect_stdout(tee):
+            result = main(argv)
+        return result, "".join(tee.text)
+
+
+class _TakenLoader:
+    """A TrainLoader whose batches are counted as the trainer takes them."""
+
+    def __init__(self, loader, run: LoaderRun):
+        self.loader, self.run = loader, run
+
+    def __iter__(self):
+        it = iter(self.loader)
+        try:
+            while True:
+                backlog, t0 = self.run.made - len(self.run.takes), time.perf_counter()
+                item = next(it)
+                self.run.takes.append((backlog, time.perf_counter() - t0))
+                yield item
+        finally:
+            it.close()
+
+
+def join_loader_workers() -> None:
+    """Wait for the workers of closed loaders, which end the batch they are
+    on; call it only when no loader is open."""
+    for t in threading.enumerate():
+        if t.name == "TrainLoader-worker":
+            t.join()
+
+
+def loader_alone(records, cfg, workers: int = 0) -> dict:
+    """The loader's own rate: batches of LOADER_BATCH as fast as its
+    workers (0: its default count) decode them, with nothing consuming them
+    but this loop. Each worker makes a whole batch, so batches come in
+    rounds of one a worker: the first round is skipped, the next two are
+    timed. The workers are joined before it returns, so that a timing after
+    it has the cores to itself."""
+    loader = data_pipeline.TrainLoader(records, KITTI_CLASS_MAPPING, cfg, LOADER_BATCH,
+                                       uint8=True, num_workers=workers)
+    it, n = iter(loader), loader.num_workers
+    try:
+        for _ in range(n):
+            next(it)
+        t0 = time.perf_counter()
+        for _ in range(2 * n):
+            next(it)
+        sec = time.perf_counter() - t0
+    finally:
+        it.close()
+        join_loader_workers()
+    return {"img_per_s": LOADER_BATCH * 2 * n / sec, "workers": n, "batches_timed": 2 * n}
+
+
+def phase_loader_train(in_memory: dict) -> tuple:
+    """Phase 9 (the module docstring). ``in_memory`` holds the img/s of the
+    in-memory phases by path. Returns (info, {path: kernel cases})."""
+    common = ["--kitti", "--device", "cuda", "--resize_dims", "600,1500",
+              "--batch_size", str(LOADER_BATCH)]
+    probe = data_pipeline.TrainLoader([], KITTI_CLASS_MAPPING, kitti_config(), LOADER_BATCH)
+    # the loader holds up to workers + prefetch batches ready; draining them
+    # takes 1 / (1 - loader rate / card rate) iterations each
+    latest = LOADER_WARMUP + 3 * (probe.num_workers + probe.prefetch)
+    total = latest + LOADER_TIMED + LOADER_PROFILED
+    out = {"cpu_count": os.cpu_count(), "workers": probe.num_workers,
+           "latest_window_start": latest, "iterations": total}
+    run = LoaderRun(latest)
+    with tempfile.TemporaryDirectory() as tmp:
+        root, work, dets = (os.path.join(tmp, d) for d in ("kitti", "work", "dets"))
+        t0 = time.perf_counter()
+        kitti_synth.build_kitti_synth_dataset(root, KITTI_CLASS_MAPPING, n_train=LOADER_TRAIN,
+                                              n_val=LOADER_VAL)
+        out["dataset"] = {"bytes": _dir_bytes(root), "seconds": time.perf_counter() - t0,
+                          "train": LOADER_TRAIN, "val": LOADER_VAL}
+        log(f"[loader_train] KITTI-synthetic dataset: {LOADER_TRAIN} train + {LOADER_VAL} val "
+            f"frames at 1242x375, {out['dataset']['bytes']} bytes written in "
+            f"{out['dataset']['seconds']:.2f} s; os.cpu_count() {out['cpu_count']}, loader "
+            f"workers {out['workers']}, {LOADER_TIMED} timed iterations from the first of "
+            f"{LOADER_WARMUP}-{latest} that finds no batch ready, of {total}")
+        train = ["--voc_paths", root, "--img_set", "train", "--workdir", work,
+                 "--clip_grad_norm", "10", *common]
+        recs, _ = load_dataset([root], "train", resize_min=600, resize_max=1500)
+        out["loader_alone"] = loader_alone(recs, kitti_config())
+        log(f"[loader_train] the loader alone (uint8 canvases, nothing consuming): "
+            f"{out['loader_alone']}")
+
+        _, text = run.cli(cli_train.main, train + ["--network", "vgg16", "--step", "all",
+                                                  "--phases", f"{total}:1e-3"])
+        _, text = run.cli(cli_train.main, train + ["--network", "vgg16", "--step", "1",
+                                                  "--phases", f"{total + 2}:1e-3"])
+        resumed = f"[step 1] resumed from iteration {total} (optimizer count {total})"
+        ck = checkpoint.restore(os.path.join(work, "step1"))
+        if resumed not in text or ck["count"] != total + 2 or \
+                ck["optimizer"]["count"] != total + 2:
+            raise RuntimeError(f"step 1 did not resume from {total} and go on to {total + 2}: "
+                               f"count {ck['count']}, optimizer count {ck['optimizer']['count']}")
+        del ck
+        out["resume"] = {"from": total, "to": total + 2,
+                         "run_s": run.info["loader_step1_resumed"]["run_s"]}
+        run.cli(cli_train.main, train + ["--network", "resnet50", "--step", "joint",
+                                         "--phases", f"{total}:1e-3"])
+        for step in ("1", "2", "3", "4", "joint"):
+            latest = checkpoint.latest_step(os.path.join(work, f"step{step}"))
+            if latest != (total + 2 if step == "1" else total):
+                raise RuntimeError(f"step {step}: latest checkpoint {latest}")
+
+        _build.reset_launches()
+        run.path, run.capturing = "loader_detect", True
+        run.info["loader_detect"] = {}
+        t0 = time.perf_counter()
+        run.cli(cli_detect.main, ["--voc_paths", root, "--img_set", "val", "--workdir", work,
+                                  "--from_step", "4", "--out_dir", dets, "--network", "vgg16",
+                                  *common])
+        torch.cuda.synchronize()
+        run.capturing = False
+        run.info["loader_detect"].update(run_s=time.perf_counter() - t0,
+                                         launches=dict(_build.LAUNCHES), iterations=1)
+        files = sorted(os.listdir(dets)) if os.path.isdir(dets) else []
+        aps, _ = run.cli(cli_evaluate.main, ["--voc_path", root, "--dets_path", dets, "--kitti",
+                                             "--img_set", "val"])
+        out["detect"] = {"files": files, "mAP": aps["mAP"], "aps": aps}
+        join_loader_workers()
+        if not files or not np.isfinite(aps["mAP"]) or not 0.0 <= aps["mAP"] <= 1.0:
+            raise RuntimeError(f"detect/evaluate: files {files}, mAP {aps['mAP']}")
+
+    out["decoder"] = ({"native": True, "library": native_loader.build_info["library"]}
+                      if "library" in native_loader.build_info else
+                      {"native": False, "pil_because": native_loader.build_info.get("error")})
+    out["loader_workers_seen"] = sorted({ld.num_workers for ld in run.loaders})
+    out["paths"] = {}
+    for path, info in run.info.items():
+        if "t1" in info:
+            sec = info["t1"] - info["t0"]
+            info.update(loader_fed_img_per_s=LOADER_BATCH * LOADER_TIMED / sec,
+                        made_img_per_s=LOADER_BATCH * info["made"] / sec,
+                        wait_share=info["wait_s"] / sec)
+            # with a backlog at the start the rate taken can outrun the rate made
+            info["sustained_img_per_s"] = min(info["loader_fed_img_per_s"],
+                                              info["made_img_per_s"])
+        info = {k: v for k, v in info.items() if k not in ("t0", "t1")}
+        info["in_memory_img_per_s"] = in_memory.get(path.replace("loader_", "").replace(
+            "joint", "train"))
+        out["paths"][path] = info
+        log(f"[loader_train {path}] {json.dumps(info)}")
+        if path in MAIN_PATHS and path != "loader_detect" and "profiled" not in info:
+            raise RuntimeError(f"{path}: no timed and profiled window in {info['iterations']} "
+                               "iterations")
+        if path in MAIN_PATHS:
+            want = expected_launches(path, info["iterations"])
+            if info["launches"] != want:
+                raise RuntimeError(f"{path}: kernel launches {info['launches']}, expected {want}")
+    log(f"[loader_train] decoder {out['decoder']}; os.cpu_count() {out['cpu_count']}; loader "
+        f"workers {out['loader_workers_seen']}; mAP after {total} iterations a step (meaningless, "
+        f"printed only) {aps['mAP']:.4f}, {len(files)} detection files")
+    cases = {}
+    for path in MAIN_PATHS:
+        cases[path] = check_kernels(run.calls.pop(path, {}), path)
+    return out, cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1164,10 +1516,17 @@ def main() -> int:
     four, four_cases = phase_four_step(FourStep(np.random.RandomState(2), dev))
     cases.update(four_cases)
     whole.update(phase_whole_four_step(np.random.RandomState(3), dev))
+    torch.cuda.empty_cache()
+
+    in_memory = {p: info["img_per_s"] for p, info in four.items()}
+    loader, loader_cases = phase_loader_train(dict(in_memory, train=tr["img_per_s"]))
+    cases.update(loader_cases)
 
     units = {"detect": (det, BATCHES), "train": (tr, TRAIN_STEPS)}
     units.update({p: (info, BATCHES) for p, info in detects.items()})
     units.update({p: (info, FOUR_STEP_TIMED) for p, info in four.items()})
+    # this slice's paths: the launches of the whole run
+    units.update({p: (loader["paths"][p], 1) for p in MAIN_PATHS})
     launches = {p: {k: v // n for k, v in info["launches"].items()}
                 for p, (info, n) in units.items()}
     log(f"[launches] per call or step {launches}")
@@ -1177,7 +1536,7 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernels,
                    "cases": dict(cases, topk_adversarial=adversarial, nms_later_step=nms_later),
                    "detect": det, "train": tr, "other_detect": detects, "four_step": four,
-                   "whole_path": whole}, f, indent=1)
+                   "whole_path": whole, "loader_train": loader}, f, indent=1)
     log(card["smi"])
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

@@ -82,6 +82,15 @@ class FreezeAwareOptimizer:
     at the first ``step()``, on each parameter's device then, so the model
     may move (``make_joint_train_step`` moves it) after the optimizer is
     built, as with ``torch.optim``.
+
+    ``state_dict()`` is ``{"kind", "count", "state"}``: the optimizer
+    ("sgd" or "adam"), the step count (which the learning-rate schedule
+    reads, as optax's schedules read its count, so a resumed run goes on
+    with the schedule) and, per trainable parameter's name, its ``trace``
+    (SGD) or ``mu`` and ``nu`` (Adam). The tensors are the live state, not
+    copies. ``load_state_dict`` takes one back and puts each tensor on its
+    parameter's device, at the load and again at each ``step()`` if the
+    model has moved since, never on the device the dict came from.
     """
 
     def __init__(self, model: nn.Module, network: str, freeze_blocks: Sequence[int],
@@ -123,7 +132,7 @@ class FreezeAwareOptimizer:
             if name not in self.state:  # zeros, as optax's init, on p's device now
                 self.state[name] = ({"trace": torch.zeros_like(p)} if self.kind == "sgd"
                                     else {"mu": torch.zeros_like(p), "nu": torch.zeros_like(p)})
-            st = self.state[name]
+            st = self._on_device(name, p)
             if self.kind == "sgd":
                 st["trace"] = g + self.momentum * st["trace"]
                 upd = st["trace"] * step_size
@@ -131,6 +140,36 @@ class FreezeAwareOptimizer:
                 upd = self._adam(g, st) * step_size
             p.add_(upd)
         self.count += 1
+
+    def _on_device(self, name: str, p: torch.Tensor) -> Dict[str, torch.Tensor]:
+        st = self.state[name]
+        for k, v in st.items():
+            if v.device != p.device:
+                st[k] = v.to(p.device)
+        return st
+
+    def state_dict(self) -> dict:
+        return {"kind": self.kind, "count": self.count,
+                "state": {name: dict(st) for name, st in self.state.items()}}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Take a :meth:`state_dict` back (one saved by a checkpoint, say),
+        its tensors onto the parameters' devices. Raises if it is another
+        optimizer's or names a parameter this one does not train."""
+        keys = ("trace",) if self.kind == "sgd" else ("mu", "nu")
+        if state["kind"] != self.kind:
+            raise ValueError(f"a {state['kind']} state for a {self.kind} optimizer")
+        params = {name: p for name, p, _ in self.params}
+        unknown = sorted(set(state["state"]) - set(params))
+        if unknown:
+            raise ValueError(f"state for parameters this optimizer does not train: {unknown}")
+        self.count = int(state["count"])
+        self.state = {}
+        for name, st in state["state"].items():
+            if set(st) != set(keys) or any(v.shape != params[name].shape for v in st.values()):
+                raise ValueError(f"{name}: state {sorted(st)} does not fit the parameter")
+            self.state[name] = dict(st)
+            self._on_device(name, params[name])
 
     def _adam(self, g: torch.Tensor, st: Dict[str, torch.Tensor],
               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> torch.Tensor:

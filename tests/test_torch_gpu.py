@@ -315,6 +315,75 @@ def test_optimizer_built_over_a_cpu_model_steps_on_cuda(cuda, kind):
         torch.testing.assert_close(q.detach().cpu(), p.detach(), rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", ["sgd", "adam"])
+@pytest.mark.parametrize("move_after_load", [False, True])
+def test_optimizer_state_from_a_cpu_checkpoint_steps_on_cuda(cuda, tmp_path, kind,
+                                                             move_after_load):
+    """A checkpoint written from the CPU (utils/checkpoint.py) restores into
+    an optimizer over a model on the card: the state goes to the card at
+    the load, or, for a model moved after the load, at its first step; the
+    count goes on, and the next steps equal the CPU's to f32 rounding."""
+    from faster_rcnn_tpu_torch.utils import checkpoint as ckpt_lib
+
+    def build():
+        torch.manual_seed(0)
+        m = torch.nn.Sequential(torch.nn.Linear(8, 4), torch.nn.Linear(4, 2))
+        return m, make_optimizer(m, "resnet50", (), lambda c: 0.1 / (1 + c), optimizer=kind)
+
+    rng = np.random.RandomState(0)
+
+    def grads(*models):
+        for ps in zip(*(m.parameters() for m in models)):
+            g = rng.standard_normal(tuple(ps[0].shape)).astype(np.float32)
+            for p in ps:
+                p.grad = torch.tensor(g, device=p.device)
+
+    ref, ref_opt = build()
+    for _ in range(2):
+        grads(ref)
+        ref_opt.step()
+    ckpt_lib.save(str(tmp_path), 2, {"model": ref.state_dict(), "optimizer": ref_opt.state_dict()})
+    restored = ckpt_lib.restore(str(tmp_path))
+    model, opt = build()
+    if not move_after_load:
+        model.to(cuda)
+    model.load_state_dict(restored["model"])
+    opt.load_state_dict(restored["optimizer"])
+    assert opt.count == 2
+    assert all(t.device == next(model.parameters()).device
+               for st in opt.state.values() for t in st.values())
+    model.to(cuda)
+    for _ in range(2):
+        grads(ref, model)
+        ref_opt.step()
+        opt.step()
+    assert opt.count == 4 and all(t.is_cuda for st in opt.state.values() for t in st.values())
+    for p, q in zip(ref.parameters(), model.parameters()):
+        torch.testing.assert_close(q.detach().cpu(), p.detach(), rtol=1e-5, atol=1e-6)
+
+
+def test_pinned_side_stream_transfer_equals_a_plain_copy(cuda):
+    """The trainer's batch transfer (pinned host buffers, a non-blocking
+    copy on a side stream that the compute stream waits for) gives the
+    same tensors as .to(device), for the step that reads them at once. The
+    copy stream is held up while a second batch of the same sizes is
+    pinned: had the first batch's pinned blocks been handed on before its
+    copy ran, the first batch would read the second's values."""
+    first = _small_batch(4)
+    second = dict(first, image=255 - first["image"], gt_boxes=first["gt_boxes"] + 1)
+    stream = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(stream):
+        torch.cuda._sleep(200_000_000)
+    transfers = [trainer._put(b, cuda, stream) for b in (first, second)]
+    for batch, transfer in zip((first, second), transfers):
+        got = trainer._take(transfer, cuda)
+        sums = {k: v.double().sum() for k, v in got.items()}  # read on the compute stream
+        for k, v in batch.items():
+            want = torch.from_numpy(v).to(cuda)
+            assert got[k].is_cuda and got[k].dtype == want.dtype and torch.equal(got[k], want), k
+            assert sums[k].item() == want.double().sum().item(), k
+
+
 def test_conv1_backward_matches_plain(cuda):
     rng = np.random.RandomState(4)
     x = torch.tensor(rng.uniform(-100, 100, (2, 38, 130, 3)), dtype=torch.float32, device=cuda)
