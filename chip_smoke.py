@@ -11,7 +11,8 @@ Phases, each of which fails the run on any error:
      on topk_adversarial's rows at k = 8000 and 128. Each reports its time,
      the plain version's time, a PyTorch library call's time where one
      computes the same function, and the bound from the H100's published
-     peaks; K3 also on the proposals of a later joint train step;
+     peaks; K3 also on the proposals of a later joint train step; K1's
+     forward also its device time a launch from torch.profiler;
   4. detect: full-width ResNet-50 KITTI detection (608x1504 canvases, B=16,
      seeded random weights) through make_detect_fn, with the launch count of
      every kernel over the timed batches, a torch.profiler table of one
@@ -47,7 +48,23 @@ Phases, each of which fails the run on any error:
      loader's own rate, the time the trainer waited for batches, the
      checkpoints' write time and size, and the device-busy share of the
      profiled iterations;
- 10. a JSON line listing every kernel, then the JSON result line.
+ 10. cached_train, the same workflow from the device cache
+     (train/device_cache.py) on phase 9's dataset: cli.train --device_cache
+     --step all on VGG16 and --step joint on ResNet-50, each step's
+     iterations in chunks of CACHED_CHUNK; per step the cache's build
+     seconds and bytes on the card, the cached rate over CACHED_TIMED
+     iterations after CACHED_WARMUP chunks (host clock between two
+     synchronizes, chunk boundaries and their metric reads inside) and each
+     chunk's rate, beside the in-memory
+     and loader-fed rates of this run, peak memory, launches over the run,
+     and the device-busy share and K1 forward device time of one chunk
+     traced by utils/profiling.device_trace; a resumed step 1;
+     cli.annotate --from_step 4 on the 16 val frames (launches counted and
+     checked as detect's); cli.gt_stats on the train frames; where h5py
+     imports, cli.export_h5 of step 4 reloaded by load_keras_h5 into a fresh
+     model whose detections equal the checkpoint's bit for bit. The kernels
+     are checked on the inputs of one cached iteration (annotate: one frame);
+ 11. a JSON line listing every kernel, then the JSON result line.
 
 It needs CUDA and the faster_rcnn_tpu_torch package beside it; without
 either it exits non-zero and prints no result.
@@ -55,11 +72,14 @@ either it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import io
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -78,15 +98,18 @@ from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda,
 from faster_rcnn_tpu_torch.ops import proposals as prop_ops
 from faster_rcnn_tpu_torch.ops.roi_align_taps import roi_axes, row_hits, tap_counts
 from faster_rcnn_tpu_torch.parallel.freeze import make_optimizer
+from faster_rcnn_tpu_torch.cli import annotate as cli_annotate
+from faster_rcnn_tpu_torch.cli import common as cli_common
 from faster_rcnn_tpu_torch.cli import detect as cli_detect
 from faster_rcnn_tpu_torch.cli import evaluate as cli_evaluate
+from faster_rcnn_tpu_torch.cli import gt_stats as cli_gt_stats
 from faster_rcnn_tpu_torch.cli import train as cli_train
 from faster_rcnn_tpu_torch.data import kitti_synth, native_loader
 from faster_rcnn_tpu_torch.data import pipeline as data_pipeline
 from faster_rcnn_tpu_torch.data.voc import KITTI_CLASS_MAPPING, load_dataset
-from faster_rcnn_tpu_torch.train import pipeline, trainer
+from faster_rcnn_tpu_torch.train import device_cache, pipeline, trainer
 from faster_rcnn_tpu_torch.train.trainer import merge_params, step_freeze_spec
-from faster_rcnn_tpu_torch.utils import checkpoint
+from faster_rcnn_tpu_torch.utils import checkpoint, profiling
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12         # dense bf16 tensor-core peak
@@ -119,12 +142,25 @@ PATHS.update({f"loader_step{s}": PATHS[f"step{s}"] for s in (1, 2, 3, 4)})
 PATHS.update(loader_joint=PATHS["train"], loader_detect=PATHS["vgg16_detect"])
 # this slice's paths: the kernels line's launches are over the whole run of
 # each, its times over one iteration's (one call's) kernel calls
-MAIN_PATHS = ("loader_step1", "loader_step2", "loader_step3", "loader_step4", "loader_joint",
-              "loader_detect")
+LOADER_PATHS = ("loader_step1", "loader_step2", "loader_step3", "loader_step4",
+                "loader_joint", "loader_detect")
+# phase 10 runs the same steps from the device cache, and annotate the VGG16
+# detect path one frame a call
+PATHS.update({f"cached_step{s}": PATHS[f"step{s}"] for s in (1, 2, 3, 4)})
+PATHS.update(cached_joint=PATHS["train"], annotate=PATHS["vgg16_detect"])
+CACHED_PATHS = ("cached_step1", "cached_step2", "cached_step3", "cached_step4",
+                "cached_joint", "annotate")
+MAIN_PATHS = LOADER_PATHS + CACHED_PATHS
 LOADER_BATCH = 16           # images a batch, as in the in-memory phases
 LOADER_WARMUP = 2
 LOADER_TIMED, LOADER_PROFILED = 16, 2  # 16: two rounds of the 8 workers a chip host runs
 LOADER_TRAIN, LOADER_VAL = 64, 16
+# phase 10: chunks of CACHED_CHUNK steps; the first CACHED_WARMUP are the
+# warm-up, the next CACHED_TIMED // CACHED_CHUNK are timed, the one after
+# them profiled
+CACHED_CHUNK = 8
+CACHED_WARMUP = 2
+CACHED_TIMED = LOADER_TIMED
 SOURCES = {"conv1": ("conv1.cu", "faster_rcnn_tpu/ops/conv1_pallas.py:262"),
            "roi_align": ("roi_align.cu", "faster_rcnn_tpu/ops/roi_align_pallas.py:178"),
            "roi_align_bwd": ("roi_align.cu", "faster_rcnn_tpu/ops/roi_align_pallas.py:213"),
@@ -300,6 +336,44 @@ def touched_pixels(rois: torch.Tensor, h: int, w: int, p: int) -> int:
     return int((hit > 0).sum())
 
 
+def kernel_device_us(prof, name: str) -> dict:
+    """Device time of each launch of the kernel ``name`` in a trace: the
+    mean, the least and the launches, from the trace's device events."""
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and re.search(rf"\b{name}\b", e.name)]
+    if not us:
+        return {"mean_us": None, "min_us": None, "launches": 0}
+    return {"mean_us": sum(us) / len(us), "min_us": min(us), "launches": len(us)}
+
+
+def profiled_device_us(fn, name: str, reps: int = 10, tries: int = 3) -> dict:
+    """The device time a launch of kernel ``name`` takes in ``reps`` calls of
+    ``fn`` under torch.profiler (not CUDA events around calls the host
+    enqueues, which read the host's pace for a short kernel). A first round
+    of ``reps`` calls runs in the profiler's warm-up step. A trace may still
+    miss launches (0-9 of 10 were seen on the H100 after many earlier
+    traces in one process), so up to ``tries`` traces are taken until one
+    holds all ``reps``; the fullest is returned, its count in
+    ``launches``."""
+    best = None
+    for _ in range(tries):
+        schedule = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                    schedule=schedule) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        got = kernel_device_us(prof, name)
+        if best is None or got["launches"] > best["launches"]:
+            best = got
+        if got["launches"] == reps:
+            break
+    return best
+
+
 def check_roi_align(label, feat, rois, p) -> dict:
     feat, rois = feat.detach().contiguous(), rois.contiguous()
     with uncounted():
@@ -308,13 +382,20 @@ def check_roi_align(label, feat, rois, p) -> dict:
         torch.cuda.synchronize()
         err, ref = _rel_err(got, want)
         ms = time_ms(lambda: roi_align_cuda.roi_align(feat, rois, p), 20)
+        device = profiled_device_us(lambda: roi_align_cuda.roi_align(feat, rois, p),
+                                    "roi_align_kernel")
     plain = time_ms(lambda: roi_align_cuda.roi_align_plain(feat, rois, p), 3, warmup=1)
     _, h, w, c = feat.shape
     pixels = touched_pixels(rois, h, w, p)
     nbytes = pixels * c * feat.element_size() + rois.numel() * 4 + got.numel() * 2
     c = _case(label, err <= 1e-2 * ref, err, ms, plain, None, nbytes, LERP_OPS * got.numel(),
-              F32_FLOPS, limit=1e-2 * ref, map_pixels_read=pixels)
+              F32_FLOPS, limit=1e-2 * ref, map_pixels_read=pixels, device_us=device)
     _log_case("roi_align", c, f"{tuple(feat.shape)} x {tuple(rois.shape)} -> {tuple(got.shape)}")
+    mean = device["mean_us"]
+    log(f"[kernel roi_align {label}] device time a launch (torch.profiler, "
+        f"{device['launches']} launches traced of 10): {mean} us, least {device['min_us']} us; "
+        f"bound {c['bound_ms'] * 1e3:.2f} us: "
+        + ("not measured" if mean is None else f"{c['bound_ms'] * 1e3 / mean:.1%} of it"))
     return c
 
 
@@ -1371,76 +1452,91 @@ def loader_alone(records, cfg, workers: int = 0) -> dict:
     return {"img_per_s": LOADER_BATCH * 2 * n / sec, "workers": n, "batches_timed": 2 * n}
 
 
-def phase_loader_train(in_memory: dict) -> tuple:
-    """Phase 9 (the module docstring). ``in_memory`` holds the img/s of the
-    in-memory phases by path. Returns (info, {path: kernel cases})."""
-    common = ["--kitti", "--device", "cuda", "--resize_dims", "600,1500",
-              "--batch_size", str(LOADER_BATCH)]
+SERVE_FLAGS = ["--kitti", "--device", "cuda", "--resize_dims", "600,1500"]
+COMMON_FLAGS = SERVE_FLAGS + ["--batch_size", str(LOADER_BATCH)]
+
+
+def loader_iterations() -> tuple:
+    """(latest window start, iterations a step) of phase 9, which phase 10
+    runs as well: the loader holds up to workers + prefetch batches ready,
+    and draining them takes 1 / (1 - loader rate / card rate) iterations
+    each."""
     probe = data_pipeline.TrainLoader([], KITTI_CLASS_MAPPING, kitti_config(), LOADER_BATCH)
-    # the loader holds up to workers + prefetch batches ready; draining them
-    # takes 1 / (1 - loader rate / card rate) iterations each
     latest = LOADER_WARMUP + 3 * (probe.num_workers + probe.prefetch)
-    total = latest + LOADER_TIMED + LOADER_PROFILED
+    return latest, latest + LOADER_TIMED + LOADER_PROFILED
+
+
+def make_dataset(root: str) -> dict:
+    """The KITTI-synthetic dataset of phases 9 and 10, written to ``root``."""
+    t0 = time.perf_counter()
+    kitti_synth.build_kitti_synth_dataset(root, KITTI_CLASS_MAPPING, n_train=LOADER_TRAIN,
+                                          n_val=LOADER_VAL)
+    info = {"bytes": _dir_bytes(root), "seconds": time.perf_counter() - t0,
+            "train": LOADER_TRAIN, "val": LOADER_VAL}
+    log(f"[dataset] KITTI-synthetic: {LOADER_TRAIN} train + {LOADER_VAL} val frames at "
+        f"1242x375, {info['bytes']} bytes written in {info['seconds']:.2f} s")
+    return info
+
+
+def phase_loader_train(in_memory: dict, root: str, tmp: str) -> tuple:
+    """Phase 9 (the module docstring) on the dataset at ``root``, its
+    workdir under ``tmp``. ``in_memory`` holds the img/s of the in-memory
+    phases by path. Returns (info, {path: kernel cases})."""
+    common = COMMON_FLAGS
+    probe = data_pipeline.TrainLoader([], KITTI_CLASS_MAPPING, kitti_config(), LOADER_BATCH)
+    latest, total = loader_iterations()
     out = {"cpu_count": os.cpu_count(), "workers": probe.num_workers,
            "latest_window_start": latest, "iterations": total}
     run = LoaderRun(latest)
-    with tempfile.TemporaryDirectory() as tmp:
-        root, work, dets = (os.path.join(tmp, d) for d in ("kitti", "work", "dets"))
-        t0 = time.perf_counter()
-        kitti_synth.build_kitti_synth_dataset(root, KITTI_CLASS_MAPPING, n_train=LOADER_TRAIN,
-                                              n_val=LOADER_VAL)
-        out["dataset"] = {"bytes": _dir_bytes(root), "seconds": time.perf_counter() - t0,
-                          "train": LOADER_TRAIN, "val": LOADER_VAL}
-        log(f"[loader_train] KITTI-synthetic dataset: {LOADER_TRAIN} train + {LOADER_VAL} val "
-            f"frames at 1242x375, {out['dataset']['bytes']} bytes written in "
-            f"{out['dataset']['seconds']:.2f} s; os.cpu_count() {out['cpu_count']}, loader "
-            f"workers {out['workers']}, {LOADER_TIMED} timed iterations from the first of "
-            f"{LOADER_WARMUP}-{latest} that finds no batch ready, of {total}")
-        train = ["--voc_paths", root, "--img_set", "train", "--workdir", work,
-                 "--clip_grad_norm", "10", *common]
-        recs, _ = load_dataset([root], "train", resize_min=600, resize_max=1500)
-        out["loader_alone"] = loader_alone(recs, kitti_config())
-        log(f"[loader_train] the loader alone (uint8 canvases, nothing consuming): "
-            f"{out['loader_alone']}")
+    work, dets = (os.path.join(tmp, d) for d in ("loader_work", "loader_dets"))
+    log(f"[loader_train] os.cpu_count() {out['cpu_count']}, loader "
+        f"workers {out['workers']}, {LOADER_TIMED} timed iterations from the first of "
+        f"{LOADER_WARMUP}-{latest} that finds no batch ready, of {total}")
+    train = ["--voc_paths", root, "--img_set", "train", "--workdir", work,
+             "--clip_grad_norm", "10", *common]
+    recs, _ = load_dataset([root], "train", resize_min=600, resize_max=1500)
+    out["loader_alone"] = loader_alone(recs, kitti_config())
+    log(f"[loader_train] the loader alone (uint8 canvases, nothing consuming): "
+        f"{out['loader_alone']}")
 
-        _, text = run.cli(cli_train.main, train + ["--network", "vgg16", "--step", "all",
-                                                  "--phases", f"{total}:1e-3"])
-        _, text = run.cli(cli_train.main, train + ["--network", "vgg16", "--step", "1",
-                                                  "--phases", f"{total + 2}:1e-3"])
-        resumed = f"[step 1] resumed from iteration {total} (optimizer count {total})"
-        ck = checkpoint.restore(os.path.join(work, "step1"))
-        if resumed not in text or ck["count"] != total + 2 or \
-                ck["optimizer"]["count"] != total + 2:
-            raise RuntimeError(f"step 1 did not resume from {total} and go on to {total + 2}: "
-                               f"count {ck['count']}, optimizer count {ck['optimizer']['count']}")
-        del ck
-        out["resume"] = {"from": total, "to": total + 2,
-                         "run_s": run.info["loader_step1_resumed"]["run_s"]}
-        run.cli(cli_train.main, train + ["--network", "resnet50", "--step", "joint",
-                                         "--phases", f"{total}:1e-3"])
-        for step in ("1", "2", "3", "4", "joint"):
-            latest = checkpoint.latest_step(os.path.join(work, f"step{step}"))
-            if latest != (total + 2 if step == "1" else total):
-                raise RuntimeError(f"step {step}: latest checkpoint {latest}")
+    _, text = run.cli(cli_train.main, train + ["--network", "vgg16", "--step", "all",
+                                              "--phases", f"{total}:1e-3"])
+    _, text = run.cli(cli_train.main, train + ["--network", "vgg16", "--step", "1",
+                                              "--phases", f"{total + 2}:1e-3"])
+    resumed = f"[step 1] resumed from iteration {total} (optimizer count {total})"
+    ck = checkpoint.restore(os.path.join(work, "step1"))
+    if resumed not in text or ck["count"] != total + 2 or \
+            ck["optimizer"]["count"] != total + 2:
+        raise RuntimeError(f"step 1 did not resume from {total} and go on to {total + 2}: "
+                           f"count {ck['count']}, optimizer count {ck['optimizer']['count']}")
+    del ck
+    out["resume"] = {"from": total, "to": total + 2,
+                     "run_s": run.info["loader_step1_resumed"]["run_s"]}
+    run.cli(cli_train.main, train + ["--network", "resnet50", "--step", "joint",
+                                     "--phases", f"{total}:1e-3"])
+    for step in ("1", "2", "3", "4", "joint"):
+        latest = checkpoint.latest_step(os.path.join(work, f"step{step}"))
+        if latest != (total + 2 if step == "1" else total):
+            raise RuntimeError(f"step {step}: latest checkpoint {latest}")
 
-        _build.reset_launches()
-        run.path, run.capturing = "loader_detect", True
-        run.info["loader_detect"] = {}
-        t0 = time.perf_counter()
-        run.cli(cli_detect.main, ["--voc_paths", root, "--img_set", "val", "--workdir", work,
-                                  "--from_step", "4", "--out_dir", dets, "--network", "vgg16",
-                                  *common])
-        torch.cuda.synchronize()
-        run.capturing = False
-        run.info["loader_detect"].update(run_s=time.perf_counter() - t0,
-                                         launches=dict(_build.LAUNCHES), iterations=1)
-        files = sorted(os.listdir(dets)) if os.path.isdir(dets) else []
-        aps, _ = run.cli(cli_evaluate.main, ["--voc_path", root, "--dets_path", dets, "--kitti",
-                                             "--img_set", "val"])
-        out["detect"] = {"files": files, "mAP": aps["mAP"], "aps": aps}
-        join_loader_workers()
-        if not files or not np.isfinite(aps["mAP"]) or not 0.0 <= aps["mAP"] <= 1.0:
-            raise RuntimeError(f"detect/evaluate: files {files}, mAP {aps['mAP']}")
+    _build.reset_launches()
+    run.path, run.capturing = "loader_detect", True
+    run.info["loader_detect"] = {}
+    t0 = time.perf_counter()
+    run.cli(cli_detect.main, ["--voc_paths", root, "--img_set", "val", "--workdir", work,
+                              "--from_step", "4", "--out_dir", dets, "--network", "vgg16",
+                              *common])
+    torch.cuda.synchronize()
+    run.capturing = False
+    run.info["loader_detect"].update(run_s=time.perf_counter() - t0,
+                                     launches=dict(_build.LAUNCHES), iterations=1)
+    files = sorted(os.listdir(dets)) if os.path.isdir(dets) else []
+    aps, _ = run.cli(cli_evaluate.main, ["--voc_path", root, "--dets_path", dets, "--kitti",
+                                         "--img_set", "val"])
+    out["detect"] = {"files": files, "mAP": aps["mAP"], "aps": aps}
+    join_loader_workers()
+    if not files or not np.isfinite(aps["mAP"]) or not 0.0 <= aps["mAP"] <= 1.0:
+        raise RuntimeError(f"detect/evaluate: files {files}, mAP {aps['mAP']}")
 
     out["decoder"] = ({"native": True, "library": native_loader.build_info["library"]}
                       if "library" in native_loader.build_info else
@@ -1461,10 +1557,10 @@ def phase_loader_train(in_memory: dict) -> tuple:
             "joint", "train"))
         out["paths"][path] = info
         log(f"[loader_train {path}] {json.dumps(info)}")
-        if path in MAIN_PATHS and path != "loader_detect" and "profiled" not in info:
+        if path in LOADER_PATHS and path != "loader_detect" and "profiled" not in info:
             raise RuntimeError(f"{path}: no timed and profiled window in {info['iterations']} "
                                "iterations")
-        if path in MAIN_PATHS:
+        if path in LOADER_PATHS:
             want = expected_launches(path, info["iterations"])
             if info["launches"] != want:
                 raise RuntimeError(f"{path}: kernel launches {info['launches']}, expected {want}")
@@ -1472,8 +1568,315 @@ def phase_loader_train(in_memory: dict) -> tuple:
         f"workers {out['loader_workers_seen']}; mAP after {total} iterations a step (meaningless, "
         f"printed only) {aps['mAP']:.4f}, {len(files)} detection files")
     cases = {}
-    for path in MAIN_PATHS:
+    for path in LOADER_PATHS:
         cases[path] = check_kernels(run.calls.pop(path, {}), path)
+    shutil.rmtree(work)  # five steps' checkpoints, 3.5 GB
+    return out, cases
+
+
+# --------------------------------------------------------------------------
+# phase 10: cached_train, the same workflow from the device cache
+# --------------------------------------------------------------------------
+
+
+class CachedRun:
+    """Instruments ``train_cached`` and the annotate CLI while the CLIs run,
+    without changing what they do. Each ``train_cached`` is a path whose
+    kernel launches are counted from its start to its end, with its peak
+    memory. Each ``build_device_dataset`` is timed between two
+    synchronizes, with the bytes it holds on the card. Chunks are counted,
+    and each one's rate taken on the host clock from its start to the next
+    chunk's (the chunk ends in its metric read, which waits for the card):
+    the first CACHED_WARMUP are the warm-up; the timed window runs on the
+    host clock from a synchronize before chunk CACHED_WARMUP to one before
+    the chunk CACHED_TIMED // CACHED_CHUNK after it, so it holds
+    CACHED_TIMED iterations with the chunks' boundaries and their metric
+    reads; the chunk after it runs under ``utils/profiling.device_trace``.
+    The kernel calls of the window's first iteration (and of annotate's
+    first frame) are recorded, counted as the path's own launches."""
+
+    def __init__(self, trace_dir: str):
+        self.trace_dir = trace_dir
+        self.info: dict = {}      # path -> what its run measured
+        self.calls: dict = {}     # path -> the recorded kernel calls
+        self.path = None
+        self.capturing = False
+
+    def _record(self, name, fn):
+        def wrapped(*args, **kw):
+            if self.capturing:
+                self.calls.setdefault(self.path, {}).setdefault(name, []).append((args, kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    def _train_cached(self, orig):
+        def run(step, *a, **k):
+            self.path = f"cached_step{step}" if isinstance(step, int) else "cached_joint"
+            if self.path in self.info:  # a second run of the step: the resume
+                self.path += "_resumed"
+            info = self.info[self.path] = {"iterations": 0, "chunks": 0, "builds": [],
+                                           "chunk_starts": []}
+            torch.cuda.synchronize()
+            # the earlier steps' weights, which run_four_step_training hands on
+            info["allocated_at_start_gb"] = torch.cuda.memory_allocated() / 1e9
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            result = orig(step, *a, **k)
+            torch.cuda.synchronize()
+            starts = info.pop("chunk_starts")
+            info.update(run_s=time.perf_counter() - t0, launches=dict(_build.LAUNCHES),
+                        max_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                        final_metrics=result.final_metrics,
+                        # each chunk but the last and the traced one
+                        chunk_img_per_s=[None if traced else LOADER_BATCH * n / (b - a)
+                                         for (a, n, traced), (b, _, _) in
+                                         zip(starts, starts[1:])])
+            return result
+        return run
+
+    def _build_cache(self, orig):
+        def build(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            buckets = orig(*a, **k)
+            torch.cuda.synchronize()
+            self.info[self.path]["builds"].append({
+                "seconds": time.perf_counter() - t0,
+                "bytes": sum(b.nbytes for b in buckets.values()),
+                "records": sum(b.n for b in buckets.values()),
+                "canvases": [list(c) for c in buckets]})
+            return buckets
+        return build
+
+    def _scan(self, orig):
+        def make(step_fn):
+            def step(batch, draws):
+                info = self.info[self.path]
+                i = info["iterations"]
+                info["iterations"] = i + 1
+                # the window's first iteration
+                self.capturing = i == CACHED_WARMUP * CACHED_CHUNK
+                try:
+                    return step_fn(batch, draws)
+                finally:
+                    self.capturing = False
+
+            run = orig(step)
+
+            def chunk(bucket, idx, flip, draws):
+                info = self.info[self.path]
+                c = info["chunks"]
+                info["chunks"] = c + 1
+                end = CACHED_WARMUP + CACHED_TIMED // CACHED_CHUNK
+                if c in (CACHED_WARMUP, end):
+                    torch.cuda.synchronize()
+                    info["t0" if c == CACHED_WARMUP else "t1"] = time.perf_counter()
+                    info["window_iterations" if c == end else "start"] = info["iterations"]
+                info["chunk_starts"].append((time.perf_counter(), int(idx.shape[0]), c == end))
+                if c != end:
+                    return run(bucket, idx, flip, draws)
+                with profiling.device_trace(os.path.join(self.trace_dir, self.path)) as prof:
+                    out = run(bucket, idx, flip, draws)
+                info["profiled"] = dict(device_busy(prof), steps=int(idx.shape[0]),
+                                        k1_fwd=kernel_device_us(prof, "roi_align_kernel"))
+                return out
+            return chunk
+        return make
+
+    def _detect_fn(self, orig):
+        def make(*a, **k):
+            detect = orig(*a, **k)
+            calls = [0]
+
+            def once(*args):
+                self.capturing = self.path == "annotate" and calls[0] == 0
+                calls[0] += 1
+                try:
+                    return detect(*args)
+                finally:
+                    self.capturing = False
+            return once
+        return make
+
+    @contextlib.contextmanager
+    def patched(self):
+        patches = [(device_cache, "train_cached", self._train_cached(device_cache.train_cached)),
+                   (device_cache, "build_device_dataset",
+                    self._build_cache(device_cache.build_device_dataset)),
+                   (device_cache, "make_scan_train_fn",
+                    self._scan(device_cache.make_scan_train_fn)),
+                   (cli_annotate, "make_detect_fn", self._detect_fn(inference.make_detect_fn))]
+        patches += [(mod, attr, self._record(name, fn)) for mod, attr, name, fn in (
+            (resnet, "conv1_kernel", "conv1", conv1_cuda.conv1),
+            (inference, "roi_align", "roi_align", roi_align_cuda.roi_align),
+            (pipeline, "roi_align", "roi_align", roi_align_cuda.roi_align),
+            (roi_align_cuda, "roi_align_backward", "roi_align_bwd",
+             roi_align_cuda.roi_align_backward),
+            (nms_cuda, "nms_keep_mask", "nms", nms_cuda.nms_keep_mask),
+            (sort_cuda, "topk_sorted", "topk", sort_cuda.topk_sorted))]
+        with contextlib.ExitStack() as stack:
+            for mod, attr, fn in patches:
+                stack.enter_context(mock.patch.object(mod, attr, fn))
+            yield
+
+    def cli(self, main, argv):
+        """A CLI's main under the instrumentation, its output kept."""
+        tee = _Tee(sys.stdout)
+        with self.patched(), contextlib.redirect_stdout(tee):
+            result = main(argv)
+        return result, "".join(tee.text)
+
+
+def _val_frames(root: str, out: str) -> str:
+    """The val frames of the dataset at ``root``, copied into ``out``."""
+    os.makedirs(out)
+    with open(os.path.join(root, "ImageSets", "Main", "val.txt")) as f:
+        names = f.read().split()
+    for name in names:
+        shutil.copy(os.path.join(root, "JPEGImages", name + ".jpg"), out)
+    return out
+
+
+def h5_round_trip(root: str, work: str, tmp: str) -> dict:
+    """Where h5py imports: ``cli.export_h5`` of step 4, ``load_keras_h5``
+    into a fresh model's state dict, and that model's detections on the
+    val frames against the checkpoint's, bit for bit. Where it does not,
+    says so: the h5 tools are a host file format, held by the CPU tests."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError as e:
+        return {"h5py": False, "why": str(e)}
+    from faster_rcnn_tpu_torch.cli import export_h5 as cli_export_h5
+    from faster_rcnn_tpu_torch.utils.keras_import import load_keras_h5
+
+    dev = torch.device("cuda")
+    flags = ["--voc_paths", root, "--network", "vgg16", *SERVE_FLAGS]
+    parser = argparse.ArgumentParser()
+    cli_common.add_common_args(parser, training=False)
+    cfg = cli_common.config_from_args(parser.parse_args(flags))
+    path = os.path.join(tmp, "step4.h5")
+    t0 = time.perf_counter()
+    written = cli_export_h5.main(flags + ["--workdir", work, "--from_step", "4", "--out", path])
+    export_s = time.perf_counter() - t0
+    loaded_state, loaded, unmatched = load_keras_h5(path, FasterRCNN(cfg).state_dict())
+    ck = trainer._load_step_params(work, 4)
+    recs, _ = load_dataset([root], "val", flip=False, resize_min=600, resize_max=1500)
+    exs = [data_pipeline.prepare_example(r, KITTI_CLASS_MAPPING, cfg, uint8=True) for r in recs]
+    images = torch.tensor(np.stack([e["image"] for e in exs]), device=dev)
+    hw = torch.tensor(np.stack([e["img_hw"] for e in exs]), device=dev)
+    dets = []
+    with uncounted():
+        for state in (ck, loaded_state):
+            model = FasterRCNN(cfg)
+            model.load_state_dict(state)
+            dets.append(inference.make_detect_fn(cfg, model, dev)(images, hw))
+    same = all(torch.equal(a, b) for a, b in zip(dets[0], dets[1]))
+    entries_equal = all(torch.equal(loaded_state[k], v) for k, v in ck.items())
+    info = {"h5py": True, "layers_written": len(written), "layers_loaded": len(loaded),
+            "unmatched": unmatched, "bytes": os.path.getsize(path), "export_s": export_s,
+            "state_equal": entries_equal, "detections_equal": same,
+            "detections": int(dets[0].valid.sum())}
+    os.remove(path)
+    if not (same and entries_equal and not unmatched and len(loaded) == len(written)):
+        raise RuntimeError(f"h5 round trip of step 4: {info}")
+    return info
+
+
+def phase_cached_train(rates: dict, root: str, tmp: str) -> tuple:
+    """Phase 10 (the module docstring) on the dataset at ``root``. ``rates``
+    holds, by step, the in-memory and loader-fed img/s of this run. Returns
+    (info, {path: kernel cases})."""
+    _, total = loader_iterations()
+    work = os.path.join(tmp, "cached_work")
+    run = CachedRun(os.path.join(tmp, "traces"))
+    train = ["--voc_paths", root, "--img_set", "train", "--workdir", work,
+             "--clip_grad_norm", "10", "--device_cache", "--chunk_steps", str(CACHED_CHUNK),
+             *COMMON_FLAGS]
+    log(f"[cached_train] --device_cache, {total} iterations a step in chunks of "
+        f"{CACHED_CHUNK}: {CACHED_TIMED} timed from iteration {CACHED_WARMUP * CACHED_CHUNK}, "
+        f"then one profiled chunk")
+    out = {"iterations": total, "chunk_steps": CACHED_CHUNK}
+    run.cli(cli_train.main, train + ["--network", "vgg16", "--step", "all",
+                                     "--phases", f"{total}:1e-3"])
+    _, text = run.cli(cli_train.main, train + ["--network", "vgg16", "--step", "1",
+                                               "--phases", f"{total + 2}:1e-3"])
+    ck = checkpoint.restore(os.path.join(work, "step1"))
+    if f"[cached step 1] resumed from iteration {total}" not in text or \
+            ck["count"] != total + 2 or ck["optimizer"]["count"] != total + 2 or \
+            run.info["cached_step1_resumed"]["iterations"] != 2:
+        raise RuntimeError(f"cached step 1 did not resume from {total} and go on to "
+                           f"{total + 2}: count {ck['count']}, optimizer count "
+                           f"{ck['optimizer']['count']}")
+    del ck
+    out["resume"] = {"from": total, "to": total + 2,
+                     "run_s": run.info["cached_step1_resumed"]["run_s"]}
+    log(f"[cached_train resume] step 1 resumed from {total} and went on to {total + 2} in "
+        f"{out['resume']['run_s']:.2f} s")
+    run.cli(cli_train.main, train + ["--network", "resnet50", "--step", "joint",
+                                     "--phases", f"{total}:1e-3"])
+    for step in ("1", "2", "3", "4", "joint"):
+        latest = checkpoint.latest_step(os.path.join(work, f"step{step}"))
+        if latest != (total + 2 if step == "1" else total):
+            raise RuntimeError(f"cached step {step}: latest checkpoint {latest}")
+
+    frames = _val_frames(root, os.path.join(tmp, "frames"))
+    _build.reset_launches()
+    run.path = "annotate"
+    t0 = time.perf_counter()
+    summary, _ = run.cli(cli_annotate.main, [
+        "--voc_paths", root, "--input_dir", frames, "--output_dir", os.path.join(tmp, "annotated"),
+        "--workdir", work, "--from_step", "4", "--network", "vgg16", *SERVE_FLAGS])
+    torch.cuda.synchronize()
+    run.info["annotate"] = {"run_s": time.perf_counter() - t0, "iterations": len(summary),
+                            "launches": dict(_build.LAUNCHES),
+                            "drawn": {os.path.basename(p): n for p, n in summary}}
+    if len(summary) != LOADER_VAL:
+        raise RuntimeError(f"annotate: {len(summary)} frames of {LOADER_VAL}")
+    log(f"[cached_train annotate] boxes drawn per frame (threshold 0.5): "
+        f"{run.info['annotate']['drawn']}, {sum(n for _, n in summary)} in all, "
+        f"{run.info['annotate']['run_s']:.2f} s")
+
+    _, stats = run.cli(cli_gt_stats.main, ["--voc_paths", root, "--img_set", "train",
+                                           *SERVE_FLAGS])
+    out["gt_stats"] = stats.strip().splitlines()
+    if len(out["gt_stats"]) != 4 or "(no boxes)" in stats:
+        raise RuntimeError(f"gt_stats printed {stats!r}")
+    out["h5"] = h5_round_trip(root, work, tmp)
+    log(f"[cached_train h5] {out['h5']}" if out["h5"]["h5py"] else
+        f"[cached_train h5] h5py does not import on this host ({out['h5']['why']}): "
+        "cli.export_h5 and load_keras_h5 not run here; the CPU tests hold them")
+
+    out["paths"] = {}
+    for path, info in run.info.items():
+        if "t1" in info:
+            sec = info.pop("t1") - info.pop("t0")
+            n = info.pop("window_iterations") - info.pop("start")
+            if n != CACHED_TIMED:
+                raise RuntimeError(f"{path}: {n} iterations in the window")
+            info["cached_img_per_s"] = LOADER_BATCH * n / sec
+        step = path.replace("cached_", "")
+        info.update({f"{k}_img_per_s": r.get(step) for k, r in rates.items()})
+        out["paths"][path] = info
+        log(f"[cached_train {path}] {json.dumps(info)}")
+        if path in CACHED_PATHS:
+            want = expected_launches(path, info["iterations"])
+            if info["launches"] != want:
+                raise RuntimeError(f"{path}: kernel launches {info['launches']}, "
+                                   f"expected {want}")
+        if path in CACHED_PATHS and path != "annotate" and (
+                "profiled" not in info or info["iterations"] != total):
+            raise RuntimeError(f"{path}: {info['iterations']} iterations, "
+                               f"profiled: {'profiled' in info}")
+        if not all(np.isfinite(v) for v in info.get("final_metrics", {}).values()):
+            raise RuntimeError(f"{path}: final metrics {info['final_metrics']}")
+    cases = {}
+    for path in CACHED_PATHS:
+        cases[path] = check_kernels(run.calls.pop(path, {}), path)
+    out["traces"] = {d: _dir_bytes(os.path.join(run.trace_dir, d))
+                     for d in os.listdir(run.trace_dir)}
+    log(f"[cached_train] device_trace files (bytes): {out['traces']}")
+    shutil.rmtree(work)
     return out, cases
 
 
@@ -1518,15 +1921,26 @@ def main() -> int:
     whole.update(phase_whole_four_step(np.random.RandomState(3), dev))
     torch.cuda.empty_cache()
 
-    in_memory = {p: info["img_per_s"] for p, info in four.items()}
-    loader, loader_cases = phase_loader_train(dict(in_memory, train=tr["img_per_s"]))
-    cases.update(loader_cases)
+    in_memory = dict({p: info["img_per_s"] for p, info in four.items()}, train=tr["img_per_s"])
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti")
+        dataset = make_dataset(root)
+        loader, loader_cases = phase_loader_train(in_memory, root, tmp)
+        cases.update(loader_cases)
+        loader["dataset"] = dataset
+        loader_fed = {p.replace("loader_", ""): info.get("sustained_img_per_s")
+                      for p, info in loader["paths"].items()}
+        rates = {"in_memory": {k.replace("train", "joint"): v for k, v in in_memory.items()},
+                 "loader_fed": loader_fed}
+        cached, cached_cases = phase_cached_train(rates, root, tmp)
+        cases.update(cached_cases)
 
     units = {"detect": (det, BATCHES), "train": (tr, TRAIN_STEPS)}
     units.update({p: (info, BATCHES) for p, info in detects.items()})
     units.update({p: (info, FOUR_STEP_TIMED) for p, info in four.items()})
     # this slice's paths: the launches of the whole run
-    units.update({p: (loader["paths"][p], 1) for p in MAIN_PATHS})
+    units.update({p: (loader["paths"][p], 1) for p in LOADER_PATHS})
+    units.update({p: (cached["paths"][p], 1) for p in CACHED_PATHS})
     launches = {p: {k: v // n for k, v in info["launches"].items()}
                 for p, (info, n) in units.items()}
     log(f"[launches] per call or step {launches}")
@@ -1536,7 +1950,8 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernels,
                    "cases": dict(cases, topk_adversarial=adversarial, nms_later_step=nms_later),
                    "detect": det, "train": tr, "other_detect": detects, "four_step": four,
-                   "whole_path": whole, "loader_train": loader}, f, indent=1)
+                   "whole_path": whole, "loader_train": loader, "cached_train": cached},
+                  f, indent=1)
     log(card["smi"])
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card["kind"],

@@ -6,13 +6,15 @@
 Counterpart of faster_rcnn_tpu/cli/train.py: the weight handoff between
 steps goes through the workdir's checkpoints, and a re-run resumes from
 them. Runs on the GPU (``--device cpu``: the plain versions on the CPU).
-The JAX package's ``--device_cache`` and ``--multihost`` are not ported
-yet, so a command line that passes them fails.
+``--device_cache`` puts the whole uint8 dataset on the device and trains
+from it (train/device_cache.py). The JAX package's ``--multihost`` is not
+ported yet, so a command line that passes it fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from faster_rcnn_tpu_torch import resolve_device
 from faster_rcnn_tpu_torch.cli.common import (add_common_args, class_mapping_from_args,
@@ -27,6 +29,13 @@ def main(argv=None):
     p.add_argument("--step", default="all",
                    help="1|2|3|4, comma list (e.g. 1,2), 'all', or 'joint' "
                         "(single-pass approximate-joint training)")
+    p.add_argument("--device_cache", action="store_true",
+                   help="upload the whole dataset to the device (uint8) and train "
+                        "from it (train/device_cache.py); flip augmentation moves "
+                        "to the device, so --flip's host doubling is off")
+    p.add_argument("--chunk_steps", type=int, default=50,
+                   help="with --device_cache: steps enqueued between two reads "
+                        "of the metrics (and checkpoint chances)")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
 
@@ -35,7 +44,7 @@ def main(argv=None):
     records, _ = load_dataset(
         args.voc_paths.split(","),
         args.img_set,
-        flip=args.flip,
+        flip=args.flip and not args.device_cache,
         resize_min=cfg.data.resize_min,
         resize_max=cfg.data.resize_max,
     )
@@ -47,10 +56,15 @@ def main(argv=None):
         steps = ("joint",)
     else:
         steps = tuple(int(s) for s in str(args.step).split(","))
+    if args.device_cache and not args.flip:
+        # the on-device flip follows cfg.data.flip_augment
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, flip_augment=False))
+    extra = (dict(chunk_steps=args.chunk_steps) if args.device_cache
+             else dict(uint8_pipeline=args.uint8_pipeline))
     results = run_four_step_training(
         cfg, records, class_mapping, args.workdir, steps=steps,
         batch_size=args.batch_size, save_frequency=args.save_frequency,
-        seed=args.seed, uint8_pipeline=args.uint8_pipeline, device=device,
+        seed=args.seed, use_device_cache=args.device_cache, device=device, **extra,
     )
     for s, r in results.items():
         print(f"step {s} final metrics: {r.final_metrics}")

@@ -11,8 +11,10 @@ Counterpart of faster_rcnn_tpu/train/trainer.py:
 Weights move between steps as state dicts, merged by top-level module
 (:func:`merge_params`). :func:`train_one_step` runs one step (or the joint
 step) from the host loader (data/pipeline.TrainLoader) with checkpoints,
-auto-resume and a checkpoint on SIGTERM/SIGINT; :func:`run_four_step_training`
-chains the steps. As in the JAX package, iteration counts are in batches,
+auto-resume and a checkpoint on SIGTERM/SIGINT (train/device_cache.py's
+``train_cached`` runs a step from the device-resident dataset with the same
+setup, checkpoints and signals); :func:`run_four_step_training` chains the
+steps. As in the JAX package, iteration counts are in batches,
 and the learning-rate phases are a function of the optimizer's count.
 """
 
@@ -23,7 +25,7 @@ import json
 import os
 import signal
 import time
-from typing import Dict, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -131,6 +133,105 @@ def _take(transfer: _Transfer, device: torch.device) -> Dict[str, torch.Tensor]:
     return transfer.tensors
 
 
+def setup_step(step, cfg: FasterRcnnConfig, init_params, rpn_params, seed: int,
+               device: torch.device):
+    """What a training step runs: (the model, ``init_params`` loaded or the
+    seeded init; the step's freeze-aware optimizer; ``step_fn_for(canvas)
+    -> (step function, config)``, one of each per canvas, the
+    landscape/portrait buckets). Steps 2 and 4 run the frozen RPN of
+    ``rpn_params``."""
+    is_rpn_step = step in (1, 3) or step == "joint"
+    if not is_rpn_step and rpn_params is None:
+        raise ValueError(f"step {step} needs the frozen RPN's rpn_params")
+    model = _model(cfg, init_params, seed, device)
+    freeze_blocks, freeze_modules = step_freeze_spec(step, cfg)
+    opt = make_optimizer(
+        model, cfg.model.network, freeze_blocks, schedule_from_phases(cfg.train.phases),
+        optimizer=cfg.train.optimizer, momentum=cfg.train.momentum,
+        weight_decay=cfg.model.weight_decay, freeze_modules=freeze_modules,
+        clip_grad_norm=cfg.train.clip_grad_norm)
+    rpn_model = None if is_rpn_step else _model(cfg, rpn_params, seed, device).requires_grad_(False)
+
+    step_fns: Dict = {}
+
+    def step_fn_for(canvas):
+        if canvas not in step_fns:
+            cfg_c = cfg.replace(
+                data=dataclasses.replace(cfg.data, canvas_h=canvas[0], canvas_w=canvas[1]))
+            fkw = dict(freeze_blocks=freeze_blocks, freeze_modules=freeze_modules, device=device)
+            if step == "joint":
+                fn = pipeline.make_joint_train_step(cfg_c, model, opt, **fkw)
+            elif is_rpn_step:
+                fn = pipeline.make_rpn_train_step(cfg_c, model, opt, **fkw)
+            else:
+                fn = pipeline.make_det_train_step(cfg_c, model, opt, rpn_model,
+                                                  heads_only=step == 4, **fkw)
+            step_fns[canvas] = (fn, cfg_c)
+        return step_fns[canvas]
+
+    return model, opt, step_fn_for
+
+
+def save_state(ckpt_dir: str, n: int, model: FasterRCNN, opt) -> None:
+    """The checkpoint of iteration ``n``: the model's and the optimizer's
+    state dicts and the count (``cli.detect`` and the handoff read
+    ``model``)."""
+    ckpt_lib.save(ckpt_dir, n, {"model": model.state_dict(), "optimizer": opt.state_dict(),
+                                "count": n}, wait=True)
+
+
+def restore_state(ckpt_dir: str, model: FasterRCNN, opt) -> int:
+    """Load the latest checkpoint in ``ckpt_dir`` into ``model`` and
+    ``opt``; its iteration, or 0 when there is none."""
+    start = ckpt_lib.latest_step(ckpt_dir)
+    if start is None:
+        return 0
+    restored = ckpt_lib.restore(ckpt_dir, start)
+    model.load_state_dict(restored["model"])
+    opt.load_state_dict(restored["optimizer"])
+    return start
+
+
+class Preemption:
+    """SIGTERM/SIGINT for a training run, as a context manager: the signal
+    calls ``on_signal(signum)`` (which checkpoints) and raises
+    ``SystemExit(128 + signum)``. One that arrives while the run is
+    :meth:`busy` (a step or a save: the model is updated in place) is
+    handled when :meth:`idle` says it has ended, with the state it leaves.
+    Outside the main thread no handler can be set, and none is."""
+
+    def __init__(self, on_signal: Callable[[int], None]):
+        self.on_signal = on_signal
+        self._busy, self._pending, self._prev = False, None, {}
+
+    def __enter__(self) -> "Preemption":
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev[sig] = signal.signal(sig, self._handle)
+            except ValueError:  # non-main thread
+                pass
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for sig, h in self._prev.items():
+            signal.signal(sig, h)
+
+    def _handle(self, signum, frame) -> None:
+        if self._busy:  # mid-step or mid-save: handled as it ends
+            self._pending = signum
+            return
+        self.on_signal(signum)
+        raise SystemExit(128 + signum)
+
+    def busy(self) -> None:
+        self._busy = True
+
+    def idle(self) -> None:
+        self._busy = False
+        if self._pending is not None:
+            self._handle(self._pending, None)
+
+
 def train_one_step(
     step,
     cfg: FasterRcnnConfig,
@@ -172,56 +273,16 @@ def train_one_step(
     the step before runs, as the JAX trainer's one-batch lookahead.
     """
     device = resolve_device(device)
-    is_rpn_step = step in (1, 3) or step == "joint"
-    if not is_rpn_step and rpn_params is None:
-        raise ValueError(f"step {step} needs the frozen RPN's rpn_params")
     batch_size = batch_size or cfg.train.batch_size
     save_frequency = save_frequency or cfg.train.save_frequency
-
-    model = _model(cfg, init_params, seed, device)
-    freeze_blocks, freeze_modules = step_freeze_spec(step, cfg)
-    opt = make_optimizer(
-        model, cfg.model.network, freeze_blocks, schedule_from_phases(cfg.train.phases),
-        optimizer=cfg.train.optimizer, momentum=cfg.train.momentum,
-        weight_decay=cfg.model.weight_decay, freeze_modules=freeze_modules,
-        clip_grad_norm=cfg.train.clip_grad_norm)
-    rpn_model = None if is_rpn_step else _model(cfg, rpn_params, seed, device).requires_grad_(False)
-
-    step_fns: Dict = {}
-
-    def step_fn_for(canvas):
-        """One step function (and anchor constants) per canvas
-        (landscape/portrait buckets), with its config."""
-        if canvas not in step_fns:
-            cfg_c = cfg.replace(
-                data=dataclasses.replace(cfg.data, canvas_h=canvas[0], canvas_w=canvas[1]))
-            fkw = dict(freeze_blocks=freeze_blocks, freeze_modules=freeze_modules, device=device)
-            if step == "joint":
-                fn = pipeline.make_joint_train_step(cfg_c, model, opt, **fkw)
-            elif is_rpn_step:
-                fn = pipeline.make_rpn_train_step(cfg_c, model, opt, **fkw)
-            else:
-                fn = pipeline.make_det_train_step(cfg_c, model, opt, rpn_model,
-                                                  heads_only=step == 4, **fkw)
-            step_fns[canvas] = (fn, cfg_c)
-        return step_fns[canvas]
+    model, opt, step_fn_for = setup_step(step, cfg, init_params, rpn_params, seed, device)
 
     ckpt_dir = os.path.join(workdir, f"step{step}")  # "stepjoint" for joint mode
-    start_iter = ckpt_lib.latest_step(ckpt_dir)
-    if start_iter is not None:
-        restored = ckpt_lib.restore(ckpt_dir, start_iter)
-        model.load_state_dict(restored["model"])
-        opt.load_state_dict(restored["optimizer"])
-        del restored
+    start_iter = restore_state(ckpt_dir, model, opt)
+    if start_iter:
         print(f"[step {step}] resumed from iteration {start_iter} "
               f"(optimizer count {opt.count})")
-    else:
-        start_iter = 0
     total = max_steps if max_steps is not None else total_iterations(cfg.train.phases)
-
-    def save(n: int) -> None:
-        ckpt_lib.save(ckpt_dir, n, {"model": model.state_dict(), "optimizer": opt.state_dict(),
-                                    "count": n}, wait=True)
 
     loader = TrainLoader(records, class_mapping, cfg, batch_size, seed=seed,
                          uint8=uint8_pipeline)
@@ -232,61 +293,44 @@ def train_one_step(
 
     # Preemption safety: on SIGTERM/SIGINT checkpoint the current state
     # before exiting, so that auto-resume continues from here.
-    current = {"iter": start_iter, "busy": False, "signal": None}
+    current = {"iter": start_iter}
 
-    def _save_and_exit(signum, frame):
-        if current["busy"]:  # mid-step or mid-save: handled as it ends
-            current["signal"] = signum
-            return
+    def on_signal(signum):
         print(f"[step {step}] signal {signum}: checkpointing at iter {current['iter']}")
-        save(current["iter"])
-        raise SystemExit(128 + signum)
-
-    def idle() -> None:
-        current["busy"] = False
-        if current["signal"] is not None:
-            _save_and_exit(current["signal"], None)
-
-    prev_handlers = {}
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        try:
-            prev_handlers[sig] = signal.signal(sig, _save_and_exit)
-        except ValueError:  # non-main thread
-            pass
+        save_state(ckpt_dir, current["iter"], model, opt)
 
     metrics = {}
     t0 = time.time()
-    try:
-        canvas, host_batch = next(it)
-        pending = (canvas, _put(host_batch, device, copy_stream))
-        for i in range(start_iter, total):
-            canvas, transfer = pending
-            fn, cfg_c = step_fn_for(canvas)
-            batch = _take(transfer, device)
-            current["busy"] = True
-            metrics = fn(batch, _draws(cfg_c, batch_size, gen))
-            current["iter"] = i + 1
-            idle()
-            # the next batch's copy rides under this step's kernels
-            nxt_canvas, nxt_host = next(it)
-            pending = (nxt_canvas, _put(nxt_host, device, copy_stream))
+    with Preemption(on_signal) as guard:
+        try:
+            canvas, host_batch = next(it)
+            pending = (canvas, _put(host_batch, device, copy_stream))
+            for i in range(start_iter, total):
+                canvas, transfer = pending
+                fn, cfg_c = step_fn_for(canvas)
+                batch = _take(transfer, device)
+                guard.busy()
+                metrics = fn(batch, _draws(cfg_c, batch_size, gen))
+                current["iter"] = i + 1
+                guard.idle()
+                # the next batch's copy rides under this step's kernels
+                nxt_canvas, nxt_host = next(it)
+                pending = (nxt_canvas, _put(nxt_host, device, copy_stream))
 
-            if (i + 1) % log_every == 0:
-                m = {k: float(v) for k, v in metrics.items()}
-                rate = (i + 1 - start_iter) * batch_size / (time.time() - t0)
-                print(f"[step {step}] iter {i+1}/{total} {m} ({rate:.2f} img/s)")
-                os.makedirs(ckpt_dir, exist_ok=True)
-                with open(os.path.join(ckpt_dir, "metrics.jsonl"), "a") as f:
-                    f.write(json.dumps({"iter": i + 1, "img_per_sec": round(rate, 2), **m})
-                            + "\n")
-            if (i + 1) % save_frequency == 0 or (i + 1) == total:
-                current["busy"] = True
-                save(i + 1)
-                idle()
-    finally:
-        for sig, h in prev_handlers.items():
-            signal.signal(sig, h)
-        it.close()  # stop the loader's prefetch workers (they'd leak otherwise)
+                if (i + 1) % log_every == 0:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    rate = (i + 1 - start_iter) * batch_size / (time.time() - t0)
+                    print(f"[step {step}] iter {i+1}/{total} {m} ({rate:.2f} img/s)")
+                    os.makedirs(ckpt_dir, exist_ok=True)
+                    with open(os.path.join(ckpt_dir, "metrics.jsonl"), "a") as f:
+                        f.write(json.dumps({"iter": i + 1, "img_per_sec": round(rate, 2), **m})
+                                + "\n")
+                if (i + 1) % save_frequency == 0 or (i + 1) == total:
+                    guard.busy()
+                    save_state(ckpt_dir, i + 1, model, opt)
+                    guard.idle()
+        finally:
+            it.close()  # stop the loader's prefetch workers (they'd leak otherwise)
     return TrainResult(params=model.state_dict(), batch_stats={},
                        final_metrics={k: float(v) for k, v in metrics.items()})
 
@@ -302,12 +346,24 @@ def run_four_step_training(
 ) -> Dict:
     """Drive steps 1..4 (or "joint") with the reference's weight handoff
     (trainer.py:290-354); ``kw`` goes to :func:`train_one_step`. A step that
-    is not run here hands over its latest checkpoint. The device-cache path
-    of the JAX package is not ported yet: ``use_device_cache=True`` raises."""
+    is not run here hands over its latest checkpoint.
+
+    ``use_device_cache=True`` runs each step through
+    ``train/device_cache.train_cached`` instead of the host loader: the
+    records must then be unflipped (flips run on the device), and the
+    loader's options (``uint8_pipeline``, ``log_every``, ``max_steps``) are
+    rejected rather than ignored."""
     if use_device_cache:
-        raise NotImplementedError(
-            "use_device_cache: train/device_cache.py is not ported yet "
-            "(ROADMAP.md, Queue 1, the device cache)")
+        from faster_rcnn_tpu_torch.train.device_cache import train_cached
+
+        bad = [k for k in ("uint8_pipeline", "log_every", "max_steps") if kw.get(k)]
+        if bad:
+            raise ValueError(f"device-cache training does not support: {bad}")
+        kw = {k: v for k, v in kw.items() if k in
+              ("batch_size", "save_frequency", "seed", "devices", "chunk_steps", "device")}
+        train_fn = train_cached
+    else:
+        train_fn = train_one_step
     resolve_device(kw.get("device"))  # no card: raise before any work
     results: Dict = {}
     fresh = init_model(cfg.train.seed, cfg, "cpu").state_dict()
@@ -315,26 +371,26 @@ def run_four_step_training(
     step1 = step2 = step3 = None
     for s in steps:
         if s == "joint":
-            r = train_one_step("joint", cfg, records, class_mapping, workdir, **kw)
+            r = train_fn("joint", cfg, records, class_mapping, workdir, **kw)
         elif s == 1:
-            r = train_one_step(1, cfg, records, class_mapping, workdir, **kw)
+            r = train_fn(1, cfg, records, class_mapping, workdir, **kw)
             step1 = r.params
         elif s == 2:
             rpn = step1 if step1 is not None else _load_step_params(workdir, 1)
-            r = train_one_step(2, cfg, records, class_mapping, workdir,
-                               init_params=fresh, rpn_params=rpn, **kw)
+            r = train_fn(2, cfg, records, class_mapping, workdir,
+                         init_params=fresh, rpn_params=rpn, **kw)
             step2 = r.params
         elif s == 3:
             det2 = step2 if step2 is not None else _load_step_params(workdir, 2)
             # backbone from step 2, rpn head fresh (train_rpn_step3.py:92-93)
             init = merge_params(fresh, det2, ["backbone"])
-            r = train_one_step(3, cfg, records, class_mapping, workdir, init_params=init, **kw)
+            r = train_fn(3, cfg, records, class_mapping, workdir, init_params=init, **kw)
             step3 = r.params
         elif s == 4:
             rpn3 = step3 if step3 is not None else _load_step_params(workdir, 3)
             init = merge_params(fresh, rpn3, ["backbone", "rpn_head"])
-            r = train_one_step(4, cfg, records, class_mapping, workdir,
-                               init_params=init, rpn_params=rpn3, **kw)
+            r = train_fn(4, cfg, records, class_mapping, workdir,
+                         init_params=init, rpn_params=rpn3, **kw)
         else:
             raise ValueError(s)
         results[s] = r

@@ -62,7 +62,7 @@ def test_config_from_args_matches_jax(training, flags):
 
 
 def test_flags_of_unported_modules_fail_in_argparse(capsys):
-    for flag in ("--device_cache", "--multihost"):
+    for flag in ("--multihost",):
         with pytest.raises(SystemExit):
             ttrain.main(["--voc_paths", "x", flag, "--device", "cpu"])
         assert "unrecognized arguments" in capsys.readouterr().err

@@ -1,0 +1,456 @@
+"""The port's device cache (train/device_cache.py) on the CPU, against
+faster_rcnn_tpu's and against its own per-step loop.
+
+  1. the uploaded buckets equal JAX's, array for array;
+  2. the flip is JAX's ``_flip_batch`` bit for bit, and ``epoch_schedule``
+     JAX's plan exactly;
+  3. a chunk equals the port's per-step loop fed the same batches (gathered
+     and flipped here with numpy) and the same generator, bit for bit in
+     f32, and one K=2 chunk of the joint step equals JAX's
+     ``make_scan_train_fn`` given the draws JAX's keys give, at the joint
+     step's tolerances (tests/test_torch_train.py::TestJointStep);
+  4. ``train_cached`` interrupted by SIGTERM and resumed ends in the state of
+     an uninterrupted run, bit for bit; ``run_four_step_training`` and
+     ``cli.train --device_cache`` route to it, and ``cli.detect`` reads its
+     checkpoint.
+
+Tiny ResNet-50 (tiny_config shapes, f32); workdirs are removed as each test
+ends (a checkpoint with momentum is about 0.2 GB).
+"""
+
+import dataclasses
+import os
+import shutil
+import signal
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from faster_rcnn_tpu.data.voc import load_dataset as jload_dataset
+from faster_rcnn_tpu.models.detector import FasterRCNN as JaxFasterRCNN
+from faster_rcnn_tpu.parallel import freeze as jfreeze
+from faster_rcnn_tpu.train import device_cache as jcache
+from faster_rcnn_tpu.train import pipeline as jpipe
+from faster_rcnn_tpu_torch.cli import detect as tdetect
+from faster_rcnn_tpu_torch.cli import train as ttrain
+from faster_rcnn_tpu_torch.data.voc import VOC_CLASS_MAPPING, load_dataset
+from faster_rcnn_tpu_torch.models.detector import FasterRCNN, init_model
+from faster_rcnn_tpu_torch.parallel import freeze as tfreeze
+from faster_rcnn_tpu_torch.train import device_cache as tcache
+from faster_rcnn_tpu_torch.train import pipeline as tpipe
+from faster_rcnn_tpu_torch.train import trainer as ttrainer
+from faster_rcnn_tpu_torch.utils import checkpoint as ckpt_lib
+from faster_rcnn_tpu_torch.utils.convert import from_flax_numpy
+from tests.test_data import make_voc_tree
+from tests.test_torch_models import port_config, redraw_norm_layers
+from tests.test_torch_train import bias_only_rpn, jax_draws, tiny_train_config, to_flax_numpy
+from tests.test_torch_trainer_jax import LOSS_ATOL
+
+MIXED_VOC = [
+    ("000001", 120, 90, [("dog", False, 20, 20, 60, 60)]),
+    ("000002", 120, 90, [("cat", False, 30, 10, 90, 70), ("dog", False, 5, 5, 40, 40)]),
+    ("000003", 90, 120, [("person", False, 10, 30, 80, 85)]),  # portrait
+    ("000004", 120, 90, [("car", False, 50, 20, 110, 80)]),
+]
+B = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def cache_config():
+    """tiny_train_config() (ResNet-50, f32, stages 1-3 frozen) for the VOC
+    classes, B=2, 4 iterations of SGD at 0.02, clip 10: the JAX package's."""
+    cfg = tiny_train_config()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, num_classes=len(VOC_CLASS_MAPPING),
+                                  weight_decay=1e-4),
+        train=dataclasses.replace(cfg.train, phases=((4, 0.02),), batch_size=B,
+                                  clip_grad_norm=10.0))
+
+
+@pytest.fixture(scope="module")
+def mixed_voc(tmp_path_factory):
+    """A VOC tree of three landscape images and one portrait, with pixels
+    drawn from fixed seeds; (root, JAX cfg, port cfg)."""
+    root = str(tmp_path_factory.mktemp("cache") / "VOC")
+    make_voc_tree(root, MIXED_VOC)
+    from PIL import Image as PilImage
+    for i, (name, w, h, _) in enumerate(MIXED_VOC):
+        pixels = np.random.RandomState(i).randint(0, 256, (h, w, 3)).astype(np.uint8)
+        PilImage.fromarray(pixels).save(os.path.join(root, "JPEGImages", name + ".jpg"))
+    jcfg = cache_config()
+    return root, jcfg, port_config(jcfg)
+
+
+def _records(root, cfg, load=load_dataset, flip=False):
+    recs, _ = load([root], "trainval", flip=flip, resize_min=cfg.data.resize_min,
+                   resize_max=cfg.data.resize_max)
+    return recs
+
+
+@pytest.fixture(scope="module")
+def buckets(mixed_voc):
+    root, jcfg, tc = mixed_voc
+    jb = jcache.build_device_dataset(_records(root, jcfg, jload_dataset), VOC_CLASS_MAPPING,
+                                     jcfg)
+    tb = tcache.build_device_dataset(_records(root, tc), VOC_CLASS_MAPPING, tc, device="cpu")
+    return jb, tb
+
+
+@pytest.fixture
+def workdir(tmp_path):
+    path = tmp_path / "work"
+    yield str(path)
+    shutil.rmtree(path, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the upload, the flip, the plan
+# ---------------------------------------------------------------------------
+
+FIELDS = ("images", "gt_boxes", "gt_class", "gt_valid", "img_hw")
+
+
+def test_build_device_dataset_matches_jax(buckets):
+    jb, tb = buckets
+    assert list(tb) == list(jb) and len(tb) == 2  # landscape, then portrait
+    for canvas in jb:
+        assert tb[canvas].n == jb[canvas].n
+        for k in FIELDS:
+            want, got = np.asarray(getattr(jb[canvas], k)), getattr(tb[canvas], k).numpy()
+            assert got.dtype == want.dtype, k
+            np.testing.assert_array_equal(got, want, err_msg=k)
+    assert tb[(64, 96)].images.dtype == torch.uint8
+    assert tb[(64, 96)].nbytes == sum(np.asarray(getattr(jb[(64, 96)], k)).nbytes
+                                      for k in FIELDS)
+
+
+def test_upload_chunks_concatenate_to_one_upload(mixed_voc, buckets):
+    root, _, tc = mixed_voc
+    one = tcache.build_device_dataset(_records(root, tc), VOC_CLASS_MAPPING, tc,
+                                      upload_chunk=1, device="cpu")
+    for canvas, b in buckets[1].items():
+        for k in FIELDS:
+            assert torch.equal(getattr(one[canvas], k), getattr(b, k)), k
+
+
+def test_flipped_records_are_rejected(mixed_voc):
+    root, _, tc = mixed_voc
+    with pytest.raises(ValueError, match="unflipped records"):
+        tcache.build_device_dataset(_records(root, tc, flip=True), VOC_CLASS_MAPPING, tc,
+                                    device="cpu")
+
+
+def _flip_case(seed, b=6, h=5, cw=11, g=4):
+    """Images whose padding holds values other than the mean pixel, widths
+    from 1 to the canvas's, invalid GT rows with non-zero boxes."""
+    rng = np.random.RandomState(seed)
+    images = rng.randint(0, 256, (b, h, cw, 3)).astype(np.uint8)
+    w = np.array([cw, 1, 7, cw - 1, 4, cw][:b], np.int32)
+    hw = np.stack([np.full(b, h, np.int32), w], 1)
+    boxes = (rng.rand(b, g, 4) * cw).astype(np.float32)
+    valid = rng.rand(b, g) < 0.6
+    flip = np.array([True, True, True, False, True, False][:b]) ^ (seed % 2 == 1)
+    return images, boxes, valid, hw, flip
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flip_is_jax_flip_batch_bit_for_bit(seed):
+    args = _flip_case(seed)
+    want_img, want_boxes = jcache._flip_batch(*(jnp.asarray(a) for a in args))
+    got_img, got_boxes = tcache.flip_batch(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_array_equal(got_img.numpy(), np.asarray(want_img))
+    assert got_boxes.numpy().tobytes() == np.asarray(want_boxes).tobytes()
+    # unflipped samples and invalid rows' boxes pass through
+    images, boxes, valid, _, flip = args
+    np.testing.assert_array_equal(got_img.numpy()[~flip], images[~flip])
+    np.testing.assert_array_equal(got_boxes.numpy()[~valid], boxes[~valid])
+    assert not np.array_equal(got_img.numpy()[flip], images[flip])
+
+
+def np_flip(images, boxes, valid, hw, flip):
+    """The flip written out in numpy: output column
+    j is w-1-j for j < w and cw-1-j+w beyond; boxes x -> w - x."""
+    images, boxes = images.copy(), boxes.copy()
+    cw = images.shape[2]
+    for i in np.where(flip)[0]:
+        w = int(hw[i, 1])
+        j = np.arange(cw)
+        images[i] = images[i][:, np.where(j < w, w - 1 - j, cw - 1 - j + w)]
+        v = valid[i]
+        x1, x2 = boxes[i, v, 0].copy(), boxes[i, v, 2].copy()
+        boxes[i, v, 0], boxes[i, v, 2] = np.float32(w) - x2, np.float32(w) - x1
+    return images, boxes
+
+
+def test_flip_matches_the_stated_column_map():
+    args = _flip_case(3)
+    got_img, got_boxes = tcache.flip_batch(*(torch.from_numpy(a) for a in args))
+    want_img, want_boxes = np_flip(*args)
+    np.testing.assert_array_equal(got_img.numpy(), want_img)
+    np.testing.assert_array_equal(got_boxes.numpy(), want_boxes)
+
+
+SCHEDULES = [  # (bucket sizes, total steps, batch size, flip_augment, seed)
+    ((3, 1), 5, 2, True, 17),
+    ((3, 1), 1, 2, True, 17),       # fewer steps than buckets
+    ((5, 2, 1), 2, 3, True, 3),     # fewer steps than buckets
+    ((5, 2, 1), 7, 2, False, 0),
+    ((4,), 9, 4, False, 5),
+    ((1, 1, 6), 3, 1, True, 11),    # the min-1 floor overshoots, then trims
+    ((10, 1), 40, 2, True, 1),      # several epochs of the small bucket
+]
+
+
+@pytest.mark.parametrize("sizes,total,b,flip,seed", SCHEDULES)
+def test_epoch_schedule_is_jax_exactly(sizes, total, b, flip, seed):
+    fake = {(i, 2 * i): types.SimpleNamespace(n=n) for i, n in enumerate(sizes)}
+    want = jcache.epoch_schedule(fake, total, b, seed=seed, flip_augment=flip)
+    got = tcache.epoch_schedule(fake, total, b, seed=seed, flip_augment=flip)
+    assert [c for c, _, _ in got] == [c for c, _, _ in want]
+    assert sum(i.shape[0] for _, i, _ in got) == total
+    for (_, gi, gf), (_, wi, wf) in zip(got, want):
+        assert gi.dtype == wi.dtype and gf.dtype == wf.dtype
+        np.testing.assert_array_equal(gi, wi)
+        np.testing.assert_array_equal(gf, wf)
+
+
+# ---------------------------------------------------------------------------
+# the chunk
+# ---------------------------------------------------------------------------
+
+IDX = np.array([[0, 1], [2, 0]], np.int32)
+FLIP = np.array([[False, True], [True, True]])
+
+
+@pytest.fixture(scope="module")
+def weights(mixed_voc):
+    """The port's seeded init with redrawn norm layers and bias-only RPN
+    outputs (tests/test_torch_train.bias_only_rpn), as a Flax numpy tree."""
+    _, _, tc = mixed_voc
+    vnp = redraw_norm_layers(to_flax_numpy(init_model(0, tc, "cpu").state_dict()), 0)
+    return bias_only_rpn(vnp, tc.anchors.num_anchors)
+
+
+def _port_joint(tc, vnp):
+    model = FasterRCNN(tc)
+    model.load_state_dict(from_flax_numpy(vnp))
+    opt = tfreeze.make_optimizer(model, "resnet50", tc.model.freeze_blocks, 0.02,
+                                 weight_decay=1e-4, clip_grad_norm=10.0)
+    return model, tpipe.make_joint_train_step(tc, model, opt, device="cpu")
+
+
+def test_chunk_equals_the_per_step_loop_bit_for_bit(mixed_voc, buckets, weights):
+    _, _, tc = mixed_voc
+    bucket = buckets[1][(64, 96)]
+    m_chunk, step_chunk = _port_joint(tc, weights)
+    m_loop, step_loop = _port_joint(tc, weights)
+    run = tcache.make_scan_train_fn(step_chunk)
+    got = run(bucket, torch.from_numpy(IDX), torch.from_numpy(FLIP),
+              torch.Generator().manual_seed(7))
+    assert all(v.shape == (2,) for v in got.values())
+    gen = torch.Generator().manual_seed(7)
+    arrays = {k: getattr(bucket, k).numpy() for k in FIELDS}
+    want = []
+    for ids, fl in zip(IDX, FLIP):
+        img, boxes = np_flip(arrays["images"][ids], arrays["gt_boxes"][ids],
+                             arrays["gt_valid"][ids], arrays["img_hw"][ids], fl)
+        batch = {"image": img, "gt_boxes": boxes, "gt_class": arrays["gt_class"][ids],
+                 "gt_valid": arrays["gt_valid"][ids], "img_hw": arrays["img_hw"][ids]}
+        want.append(step_loop(batch, gen))
+    for k, v in got.items():
+        assert torch.equal(v, torch.stack([m[k] for m in want])), k
+    assert got["det_reg"][0] > 0 and got["num_valid_images"].tolist() == [2, 2]
+    for (n, a), (_, b) in zip(m_chunk.state_dict().items(), m_loop.state_dict().items()):
+        assert torch.equal(a, b), n
+
+
+# The bf16 RPN conv's backward rounds apart in the two frameworks (ROADMAP.md
+# Queue 3), and every RPN-head gradient passes through it. From bias-only
+# RPN outputs the conv's weights move little in a chunk (largest change
+# 3.6e-7, mostly weight decay) and agree with JAX to 2.61e-2 of it (bias
+# 2.09e-2), the 1x1 bbreg outputs to 1.02e-3; every other parameter to
+# 3.6e-4. The conv is held at the trainer tests' 4e-2
+# (tests/test_torch_trainer_jax.TRAINER_RPN_HELD), the rest of the RPN head
+# at the RPN-step tests' 2e-2 (tests/test_torch_four_step.RPN_STEP_HELD),
+# everything else at the joint step's 1e-3.
+CHUNK_HELD = {"rpn_head.rpn_conv1.": 4e-2, "rpn_head.": 2e-2}
+
+
+def test_joint_chunk_matches_jax_scan(mixed_voc, buckets, weights):
+    """One K=2 chunk of the joint step against JAX's make_scan_train_fn
+    from the same weights and bucket; the port gets the draws JAX's keys
+    give (fold_in(key, i), split over the batch, the joint step's fold).
+    Held at the joint step's tolerances: losses 1e-4 relative, parameters
+    1e-3 of their largest change, the RPN head behind its bf16 conv at
+    CHUNK_HELD."""
+    _, jcfg, tc = mixed_voc
+    jb, tb = buckets
+    canvas = (64, 96)
+    params = weights["params"]
+    tx = jfreeze.make_optimizer(params, "resnet50", jcfg.model.freeze_blocks, 0.02,
+                                weight_decay=1e-4, clip_grad_norm=10.0)
+    jstep = jpipe.make_joint_train_step(jcfg, JaxFasterRCNN(jcfg), tx, weights["batch_stats"])
+    state = jpipe.TrainState(jax.tree_util.tree_map(jnp.asarray, params), tx.init(params),
+                             jnp.zeros((), jnp.int32))
+    key = jax.random.PRNGKey(42)
+    data = {k: getattr(jb[canvas], k) for k in FIELDS}
+    state, jm = jcache.make_scan_train_fn(jstep, B)(state, jnp.asarray(IDX), jnp.asarray(FLIP),
+                                                    key, data)
+    jparams = from_flax_numpy({"params": jax.tree_util.tree_map(np.asarray, state.params)})
+    jax.clear_caches()
+
+    model, step = _port_joint(tc, weights)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    draws = [jax_draws(jax.random.split(jax.random.fold_in(key, i), B), tc) for i in range(2)]
+    got = tcache.make_scan_train_fn(step)(tb[canvas], torch.from_numpy(IDX),
+                                          torch.from_numpy(FLIP), draws)
+    for k in ("rpn_cls", "rpn_reg", "det_cls", "det_reg", "loss"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(jm[k]), rtol=1e-4,
+                                   atol=LOSS_ATOL, err_msg=k)
+    np.testing.assert_array_equal(got["num_valid_images"].numpy(),
+                                  np.asarray(jm["num_valid_images"]))
+    ratios = {}
+    for n, p in model.named_parameters():
+        delta = (jparams[n] - before[n]).abs().max().item()
+        if delta == 0:
+            assert torch.equal(p.detach(), before[n]), n
+            continue
+        ratios[n] = (p.detach() - jparams[n]).abs().max().item() / delta
+    bad = {n: r for n, r in ratios.items()
+           if r > next((v for k, v in CHUNK_HELD.items() if n.startswith(k)), 1e-3)}
+    assert ratios and not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# train_cached, run_four_step_training and the CLI
+# ---------------------------------------------------------------------------
+
+
+def _train(tc, recs, workdir, **kw):
+    return tcache.train_cached("joint", tc, recs, VOC_CLASS_MAPPING, workdir, seed=3,
+                               chunk_steps=1, log_cb=lambda *_: None, device="cpu", **kw)
+
+
+def test_interrupted_and_resumed_run_ends_as_an_uninterrupted_one(mixed_voc, tmp_path,
+                                                                     monkeypatch):
+    """SIGTERM during the second chunk: the chunk ends, is checkpointed at
+    iteration 2 and the run exits; the next run resumes there, skips the
+    covered chunks and replays the remaining draws. Model and optimizer
+    state end as the uninterrupted run's, bit for bit."""
+    root, _, tc = mixed_voc
+    recs = _records(root, tc)
+    whole = _train(tc, recs, str(tmp_path / "whole"))
+    whole_opt = ckpt_lib.restore(str(tmp_path / "whole" / "stepjoint"))["optimizer"]
+    shutil.rmtree(tmp_path / "whole")
+
+    made = tcache.make_scan_train_fn
+    chunks = []
+
+    def signalling(step_fn):
+        run = made(step_fn)
+
+        def chunk(*a):
+            chunks.append(1)
+            out = run(*a)
+            if len(chunks) == 2:
+                signal.raise_signal(signal.SIGTERM)  # mid-chunk: handled as it ends
+            return out
+        return chunk
+
+    before = signal.getsignal(signal.SIGTERM)
+    work = str(tmp_path / "cut")
+    with monkeypatch.context() as m:
+        m.setattr(tcache, "make_scan_train_fn", signalling)
+        with pytest.raises(SystemExit) as exc:
+            _train(tc, recs, work)
+    assert exc.value.code == 128 + signal.SIGTERM
+    assert signal.getsignal(signal.SIGTERM) == before
+    assert ckpt_lib.latest_step(os.path.join(work, "stepjoint")) == 2
+    logs = []
+    resumed = tcache.train_cached("joint", tc, recs, VOC_CLASS_MAPPING, work, seed=3,
+                                  chunk_steps=1, log_cb=logs.append, device="cpu")
+    assert logs[0] == "[cached step joint] resumed from iteration 2"
+    assert [line.split()[3] for line in logs[1:]] == ["3/4", "4/4"]
+    for n, t in whole.params.items():
+        assert torch.equal(resumed.params[n], t), n
+    opt = ckpt_lib.restore(os.path.join(work, "stepjoint"))["optimizer"]
+    assert opt["count"] == whole_opt["count"] == 4
+    assert set(opt["state"]) == set(whole_opt["state"])
+    for n, st in whole_opt["state"].items():
+        for k, t in st.items():
+            assert torch.equal(opt["state"][n][k], t), (n, k)
+    assert resumed.final_metrics == whole.final_metrics
+    shutil.rmtree(work)
+
+
+def test_four_step_training_routes_to_the_cache(mixed_voc, workdir):
+    root, _, tc = mixed_voc
+    recs = _records(root, tc)
+    cfg = tc.replace(train=dataclasses.replace(tc.train, phases=((2, 0.02),)))
+    res = ttrainer.run_four_step_training(cfg, recs, VOC_CLASS_MAPPING, workdir, steps=(1, 2),
+                                          use_device_cache=True, batch_size=B, seed=1,
+                                          chunk_steps=1, device="cpu")
+    assert set(res) == {1, 2}
+    assert np.isfinite(res[2].final_metrics["det_cls"])
+    for s in (1, 2):
+        ck = ckpt_lib.restore(os.path.join(workdir, f"step{s}"))
+        assert ck["count"] == 2 and ck["optimizer"]["count"] == 2
+    # step 2 trains a fresh detector on step 1's frozen RPN
+    assert torch.equal(res[2].params["rpn_head.rpn_out_cls.weight"],
+                       ttrainer.init_model(cfg.train.seed, cfg, "cpu").state_dict()[
+                           "rpn_head.rpn_out_cls.weight"])
+
+
+def test_four_step_training_rejects_what_the_cache_cannot_do(mixed_voc, workdir, monkeypatch):
+    root, _, tc = mixed_voc
+    recs = _records(root, tc)
+    run = ttrainer.run_four_step_training
+    with pytest.raises(ValueError, match="unflipped records"):
+        run(tc, _records(root, tc, flip=True), VOC_CLASS_MAPPING, workdir, steps=(1,),
+            use_device_cache=True, device="cpu")
+    for opt in ("uint8_pipeline", "log_every", "max_steps"):
+        with pytest.raises(ValueError, match=opt):
+            run(tc, recs, VOC_CLASS_MAPPING, workdir, steps=(1,), use_device_cache=True,
+                device="cpu", **{opt: 1})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        run(tc, recs, VOC_CLASS_MAPPING, workdir, steps=(1,), use_device_cache=True,
+            device="cpu", devices=["cpu", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcache.train_cached(1, tc, recs, VOC_CLASS_MAPPING, workdir)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcache.build_device_dataset(recs, VOC_CLASS_MAPPING, tc)
+    assert not os.path.exists(workdir)
+
+
+def test_cli_train_device_cache_then_detect(mixed_voc, tmp_path, capsys):
+    """``cli.train --device_cache --step joint`` trains from the cache with
+    flips off (--no-flip: the records stay unflipped and flip_augment is
+    off), and ``cli.detect --from_step joint`` reads its checkpoint."""
+    root, _, _ = mixed_voc
+    work, dets = str(tmp_path / "work"), str(tmp_path / "dets")
+    common = ["--voc_paths", root, "--network", "resnet50", "--resize_dims", "48,96",
+              "--anchor_scales", "16,32", "--device", "cpu"]
+    res = ttrain.main(common + ["--device_cache", "--no-flip", "--step", "joint",
+                                "--phases", "2:1e-3", "--batch_size", "2", "--workdir", work,
+                                "--chunk_steps", "1"])
+    out = capsys.readouterr().out
+    assert "loaded 4 training records" in out  # unflipped: no doubling
+    assert "[cached step joint] 1/2 steps" in out and "[cached step joint] 2/2 steps" in out
+    assert set(res) == {"joint"} and np.isfinite(res["joint"].final_metrics["loss"])
+    assert ckpt_lib.latest_step(os.path.join(work, "stepjoint")) == 2
+    with open(os.path.join(root, "ImageSets", "Main", "val.txt"), "w") as f:
+        f.write("000001\n000002\n")
+    tdetect.main(common + ["--img_set", "val", "--workdir", work, "--from_step", "joint",
+                           "--out_dir", dets, "--batch_size", "2"])
+    assert "images to process" in capsys.readouterr().out
+    assert os.path.isdir(dets)
+    shutil.rmtree(work)

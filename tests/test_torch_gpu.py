@@ -18,7 +18,7 @@ from faster_rcnn_tpu_torch.models.detector import init_model
 from faster_rcnn_tpu_torch.models.resnet import Conv1
 from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda, sort, sort_cuda
 from faster_rcnn_tpu_torch.parallel.freeze import make_optimizer
-from faster_rcnn_tpu_torch.train import pipeline, trainer
+from faster_rcnn_tpu_torch.train import device_cache, pipeline, trainer
 
 pytestmark = pytest.mark.gpu
 
@@ -521,3 +521,60 @@ def test_four_step_train_steps_run_on_cuda_by_default(cuda, network):
         got = {k: v for k, v in _build.LAUNCHES.items() if v}
         assert got == want[step], (step, got)
         assert all(v.is_cuda and bool(torch.isfinite(v).all()) for v in metrics.values())
+
+
+def test_device_flip_on_cuda_is_the_cpu_flip(cuda):
+    """The cache's flip and gather on the card equal the CPU's bit for bit:
+    widths from 1 to the canvas's, padding that is not the mean pixel,
+    invalid GT rows."""
+    rng = np.random.RandomState(0)
+    n, h, cw, g = 6, 40, 96, 5
+    images = torch.tensor(rng.randint(0, 256, (n, h, cw, 3)), dtype=torch.uint8)
+    hw = torch.tensor([[h, w] for w in (96, 1, 50, 95, 13, 96)], dtype=torch.int32)
+    boxes = torch.tensor(rng.rand(n, g, 4) * cw, dtype=torch.float32)
+    valid = torch.tensor(rng.rand(n, g) < 0.6)
+    cls = torch.tensor(rng.randint(0, 5, (n, g)), dtype=torch.int32)
+    flip = torch.tensor([True, True, False, True, True, False])
+    got = device_cache.flip_batch(images.to(cuda), boxes.to(cuda), valid.to(cuda), hw.to(cuda),
+                                  flip.to(cuda))
+    want = device_cache.flip_batch(images, boxes, valid, hw, flip)
+    for a, b in zip(got, want):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+    bucket = device_cache.DeviceBucket((h, cw), images, boxes, cls, valid, hw)
+    on_card = device_cache.DeviceBucket((h, cw), *(t.to(cuda) for t in (
+        images, boxes, cls, valid, hw)))
+    ids, fl = torch.tensor([5, 0, 2, 2], dtype=torch.int32), torch.tensor([True, False, True, False])
+    got = device_cache.gather_batch(on_card, ids.to(cuda), fl.to(cuda))
+    want = device_cache.gather_batch(bucket, ids, fl)
+    for k, t in want.items():
+        assert got[k].is_cuda and torch.equal(got[k].cpu(), t), k
+
+
+@pytest.mark.parametrize("network", ["vgg16", "resnet101"])
+def test_cached_chunk_on_cuda_launches_what_its_steps_launch(cuda, network):
+    """A chunk of 2 steps from a bucket on the card: each step launches
+    every kernel its step launches fed batch by batch (the test above), and
+    the metrics stay on the card."""
+    cfg = _small_config(network)
+    batch = _small_batch(b=3)
+    bucket = device_cache.DeviceBucket((256, 384), *(
+        torch.as_tensor(batch[k], device=cuda)
+        for k in ("image", "gt_boxes", "gt_class", "gt_valid", "img_hw")))
+    per_step = {1: {"topk": 2}, 2: {"topk": 1, "nms": 1, "roi_align": 1, "roi_align_bwd": 1},
+                4: {"topk": 1, "nms": 1, "roi_align": 1}}
+    if network == "resnet101":
+        per_step = {1: dict(per_step[1], conv1=1), 2: dict(per_step[2], conv1=2),
+                    4: dict(per_step[4], conv1=1)}
+    rpn = init_model(1, cfg)
+    for step in (1, 2, 4):
+        _, _, step_fn_for = trainer.setup_step(step, cfg, None, rpn.state_dict(), 0, cuda)
+        run = device_cache.make_scan_train_fn(step_fn_for((256, 384))[0])
+        idx = torch.tensor([[0, 1], [2, 0]], dtype=torch.int32, device=cuda)
+        flip = torch.tensor([[False, True], [True, True]], device=cuda)
+        _build.reset_launches()
+        metrics = run(bucket, idx, flip, device_cache.chunk_generator(0, step, 0, cuda))
+        torch.cuda.synchronize()
+        got = {k: v for k, v in _build.LAUNCHES.items() if v}
+        assert got == {k: 2 * v for k, v in per_step[step].items()}, (step, got)
+        assert all(v.is_cuda and v.shape == (2,) and bool(torch.isfinite(v).all())
+                   for v in metrics.values())

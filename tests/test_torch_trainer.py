@@ -199,9 +199,9 @@ def test_steps_run_on_cuda_unless_asked_for_the_cpu(setting, workdir, monkeypatc
         ttrainer.train_one_step(1, tc, recs, VOC_CLASS_MAPPING, workdir)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrainer.run_four_step_training(tc, recs, VOC_CLASS_MAPPING, workdir)
-    with pytest.raises(NotImplementedError, match="device_cache"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrainer.run_four_step_training(tc, recs, VOC_CLASS_MAPPING, workdir,
-                                        use_device_cache=True, device="cpu")
+                                        use_device_cache=True)
     with pytest.raises(ValueError, match="rpn_params"):
         ttrainer.train_one_step(2, tc, recs, VOC_CLASS_MAPPING, workdir, device="cpu")
 
