@@ -64,7 +64,20 @@ Phases, each of which fails the run on any error:
      imports, cli.export_h5 of step 4 reloaded by load_keras_h5 into a fresh
      model whose detections equal the checkpoint's bit for bit. The kernels
      are checked on the inputs of one cached iteration (annotate: one frame);
- 11. a JSON line listing every kernel, then the JSON result line.
+ 11. multi_gpu: one NCCL process per visible card, up to MP_MAX_RANKS
+     (torch.multiprocessing, a FileStore rendezvous in a temporary
+     directory; one process on a one-card host, through the same code: the
+     process group, the gradient all-reduce, the metric reduction, the
+     all-gather of sharded detection). Per rank, at MP_CHECK_B images of a
+     global batch, f32: the data-parallel joint step against the local
+     joint step on the whole batch (phase 6's limits), and the sharded
+     detect against the single-card detect (the same detections); then at
+     kitti_config(), global B=MP_B: the data-parallel joint step and the
+     sharded detect, timed, with each rank's launches from 0 over the timed
+     run and its peak memory, beside the one-card rates of phases 4 and 5;
+     the kernels checked on rank 0's inputs. A failure in any rank fails
+     the run;
+ 12. a JSON line listing every kernel, then the JSON result line.
 
 It needs CUDA and the faster_rcnn_tpu_torch package beside it; without
 either it exits non-zero and prints no result.
@@ -97,6 +110,8 @@ from faster_rcnn_tpu_torch.models.detector import FasterRCNN, init_model
 from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda, sort, sort_cuda
 from faster_rcnn_tpu_torch.ops import proposals as prop_ops
 from faster_rcnn_tpu_torch.ops.roi_align_taps import roi_axes, row_hits, tap_counts
+from faster_rcnn_tpu_torch.parallel import mesh as mesh_lib
+from faster_rcnn_tpu_torch.parallel import multihost
 from faster_rcnn_tpu_torch.parallel.freeze import make_optimizer
 from faster_rcnn_tpu_torch.cli import annotate as cli_annotate
 from faster_rcnn_tpu_torch.cli import common as cli_common
@@ -150,7 +165,11 @@ PATHS.update({f"cached_step{s}": PATHS[f"step{s}"] for s in (1, 2, 3, 4)})
 PATHS.update(cached_joint=PATHS["train"], annotate=PATHS["vgg16_detect"])
 CACHED_PATHS = ("cached_step1", "cached_step2", "cached_step3", "cached_step4",
                 "cached_joint", "annotate")
-MAIN_PATHS = LOADER_PATHS + CACHED_PATHS
+# phase 11 runs the joint step data-parallel and detection batch-sharded,
+# one process per card: each rank launches what the one-card paths launch
+PATHS.update(multi_gpu_joint=PATHS["train"], multi_gpu_detect=PATHS["detect"])
+MP_PATHS = ("multi_gpu_joint", "multi_gpu_detect")
+MAIN_PATHS = LOADER_PATHS + CACHED_PATHS + MP_PATHS
 LOADER_BATCH = 16           # images a batch, as in the in-memory phases
 LOADER_WARMUP = 2
 LOADER_TIMED, LOADER_PROFILED = 16, 2  # 16: two rounds of the 8 workers a chip host runs
@@ -161,6 +180,12 @@ LOADER_TRAIN, LOADER_VAL = 64, 16
 CACHED_CHUNK = 8
 CACHED_WARMUP = 2
 CACHED_TIMED = LOADER_TIMED
+# phase 11: at most MP_MAX_RANKS ranks; MP_CHECK_B images a rank in the f32
+# checks; the global batch MP_B, MP_STEPS timed steps (BATCHES detect calls)
+MP_MAX_RANKS = 4
+MP_CHECK_B = 2
+MP_B = 16
+MP_STEPS = TRAIN_STEPS
 SOURCES = {"conv1": ("conv1.cu", "faster_rcnn_tpu/ops/conv1_pallas.py:262"),
            "roi_align": ("roi_align.cu", "faster_rcnn_tpu/ops/roi_align_pallas.py:178"),
            "roi_align_bwd": ("roi_align.cu", "faster_rcnn_tpu/ops/roi_align_pallas.py:213"),
@@ -991,14 +1016,22 @@ def _model(cfg, state: dict, dev) -> FasterRCNN:
     return model.to(dev).eval()
 
 
-def _train_once(cfg, state, dev, batch, draws, plain: bool, step="joint", rpn_state=None):
+def _train_once(cfg, state, dev, batch, draws, plain: bool, step="joint", rpn_state=None,
+                mesh=None):
     """One train step (the joint step, or a step 1-4 of the 4-step scheme
     with ``rpn_state`` its frozen RPN) from ``state``, SGD lr 1e-3 with
-    momentum: (metrics, parameters after, labels)."""
+    momentum: (metrics, parameters after, labels). On a ``mesh`` (the
+    joint step only) this rank's rows of the global ``batch`` and
+    ``draws``, data-parallel."""
     model = _model(cfg, state, dev)
     fb, fm = step_freeze_spec(step, cfg)
-    opt = make_optimizer(model, cfg.model.network, fb, 1e-3, momentum=0.9, freeze_modules=fm)
-    if step == "joint":
+    opt = make_optimizer(model, cfg.model.network, fb, 1e-3, momentum=0.9, freeze_modules=fm,
+                         mesh=mesh)
+    if mesh is not None:
+        batch = mesh_lib.shard_batch(mesh, batch)
+        draws = pipeline.Draws(**mesh_lib.shard_batch(mesh, draws._asdict()))
+        run = pipeline.make_joint_train_step(cfg, model, opt, fb, fm, device=dev)
+    elif step == "joint":
         run = pipeline.make_joint_train_step(cfg, model, opt, fb, fm, device=dev)
     elif step in (1, 3):
         run = pipeline.make_rpn_train_step(cfg, model, opt, fb, fm, device=dev)
@@ -1880,6 +1913,177 @@ def phase_cached_train(rates: dict, root: str, tmp: str) -> tuple:
     return out, cases
 
 
+# --------------------------------------------------------------------------
+# phase 11: multi_gpu, one process per card over NCCL
+# --------------------------------------------------------------------------
+
+
+def _mp_init(rank: int, world: int, store_path: str):
+    """This process's card and its NCCL process group (a FileStore
+    rendezvous: no port); the kernels built by local rank 0 first. Returns
+    the (data = world) mesh and the device."""
+    os.environ["LOCAL_RANK"] = str(rank)  # one host: its card, and who builds
+    torch.cuda.set_device(rank)
+    store = torch.distributed.FileStore(store_path, world)
+    torch.distributed.init_process_group("nccl", store=store, rank=rank, world_size=world)
+    multihost.build_kernels_once()
+    return mesh_lib.create_mesh(), torch.device("cuda", rank)
+
+
+def _mp_timed(fn, n: int, warmup: int) -> tuple:
+    """``fn()`` ``warmup`` times uncounted, then ``n`` times counted: (seconds
+    between two synchronizes, launches, peak GB, the last result)."""
+    with uncounted():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    multihost.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return sec, dict(_build.LAUNCHES), torch.cuda.max_memory_allocated() / 1e9, out
+
+
+def _mp_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of phase 11 (main's docstring): its results to
+    ``tmp/rank<r>.pt``. Any error fails the spawn, and so the run."""
+    mesh, dev = _mp_init(rank, world, os.path.join(tmp, "store"))
+    out = {"rank": rank, "device": torch.cuda.get_device_name(dev)}
+    # (a) B = MP_CHECK_B a rank's share of a small global batch, f32: the
+    # data-parallel joint step against the local one on all of it, and
+    # the sharded detect against the single-card detect
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b = MP_CHECK_B * world
+    base = kitti_config()
+    cfg = base.replace(model=dataclasses.replace(base.model, compute_dtype="float32"))
+    state = _bias_only_rpn(init_model(1, cfg, "cpu").state_dict(), cfg.anchors.num_anchors)
+    rng = np.random.RandomState(5)
+    batch = kitti_train_batch(rng, b, cfg)
+    draws = pipeline.draw_samples(cfg, b, torch.Generator(device=dev).manual_seed(1))
+    got = _train_once(cfg, state, dev, batch, draws, plain=False, mesh=mesh)
+    want = _train_once(cfg, state, dev, batch, draws, plain=False)
+    out["train_check"] = _step_agreement(state, got, want)
+    img, hw = kitti_batch(rng, b, cfg)
+    with uncounted():
+        single = inference.make_detect_fn(cfg, _model(cfg, state, dev), dev)(img, hw)
+        sharded = inference.make_detect_fn(cfg, _model(cfg, state, dev), dev, mesh=mesh)(img, hw)
+    out["detect_check"] = _agreement(sharded, single)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del got, want, single, sharded
+    torch.cuda.empty_cache()
+
+    # (b) kitti_config(), global B=MP_B: the data-parallel joint step and
+    # the sharded detect, launches counted from 0 over the timed run
+    cfg = kitti_config()
+    rng = np.random.RandomState(0)
+    model = init_model(0, cfg, dev)
+    opt = make_optimizer(model, cfg.model.network, cfg.model.freeze_blocks, 1e-3, momentum=0.9,
+                         clip_grad_norm=10.0, mesh=mesh)
+    step = pipeline.make_joint_train_step(cfg, model, opt, device=dev)
+    mesh_lib.replicated(mesh, model.state_dict())
+    part = {k: torch.as_tensor(v, device=dev)
+            for k, v in mesh_lib.shard_batch(mesh, kitti_train_batch(rng, MP_B, cfg)).items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def train():
+        return step(part, multihost.global_draws(cfg, MP_B, gen, mesh))
+
+    # one recorded step on every rank (each step all-reduces); rank 0
+    # checks the kernels on its inputs
+    cases, calls = {}, {}
+    with recording(calls):
+        train()
+    if rank == 0:
+        cases["multi_gpu_joint"] = check_kernels(calls, "multi_gpu_joint")
+    del calls
+    sec, launches, peak, metrics = _mp_timed(train, MP_STEPS, TRAIN_WARMUP)
+    out["multi_gpu_joint"] = {
+        "img_per_s": MP_B * MP_STEPS / sec, "step_ms": sec / MP_STEPS * 1e3,
+        "local_batch": len(part["image"]), "launches": launches, "max_memory_gb": peak,
+        "metrics": {k: float(v) for k, v in metrics.items()}}
+    del model, opt, step, part
+    torch.cuda.empty_cache()
+
+    model = init_model(0, cfg, dev)
+    detect = inference.make_detect_fn(cfg, model, dev, mesh=mesh)
+    img, hw = kitti_batch(rng, MP_B, cfg)
+    images, img_hw = torch.tensor(img, device=dev), torch.tensor(hw, device=dev)
+    calls = {}
+    with recording(calls):
+        detect(images, img_hw)
+    if rank == 0:
+        with torch.inference_mode():
+            cases["multi_gpu_detect"] = check_kernels(calls, "multi_gpu_detect")
+    del calls
+    sec, launches, peak, dets = _mp_timed(lambda: detect(images, img_hw), BATCHES, 1)
+    check_dets(dets, MP_B, cfg.rpn.infer_post_nms, cfg.model.num_classes)
+    out["multi_gpu_detect"] = {
+        "img_per_s": MP_B * BATCHES / sec, "batch_ms": sec / BATCHES * 1e3,
+        "local_batch": MP_B // world, "launches": launches, "max_memory_gb": peak,
+        "valid_per_image": dets.valid.sum(1).tolist()}
+    out["cases"] = cases
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    multihost.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def phase_multi_gpu(local_rates: dict) -> tuple:
+    """Phase 11 (main's docstring) on up to MP_MAX_RANKS cards, beside the
+    single-card rates of phases 4 and 5 (``local_rates``). Returns (info,
+    {path: kernel cases of rank 0})."""
+    world = min(MP_MAX_RANKS, torch.cuda.device_count())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.multiprocessing.start_processes(_mp_rank, args=(world, tmp), nprocs=world,
+                                              join=True, start_method="spawn")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+    info = {"world": world, "seconds": time.perf_counter() - t0, "global_batch": MP_B,
+            "local_rates": local_rates}
+    cases = ranks[0].pop("cases")
+    for r in ranks:
+        r.pop("cases", None)
+    info["ranks"] = ranks
+    bad = []
+    for r in ranks:
+        tc, dc = r["train_check"], r["detect_check"]
+        if not tc["ok"]:
+            bad.append(f"rank {r['rank']}: the data-parallel joint step against the local one")
+        if not (dc["valid_a"] == dc["valid_b"] and dc["close_frac"] == 1.0):
+            bad.append(f"rank {r['rank']}: the sharded detect against the single-card one")
+        for path, n in (("multi_gpu_joint", MP_STEPS), ("multi_gpu_detect", BATCHES)):
+            want = expected_launches(path, n)
+            if r[path]["launches"] != want:
+                bad.append(f"rank {r['rank']} {path}: launches {r[path]['launches']}, "
+                           f"expected {want}")
+        if not all(np.isfinite(v) for v in r["multi_gpu_joint"]["metrics"].values()):
+            bad.append(f"rank {r['rank']}: metrics {r['multi_gpu_joint']['metrics']}")
+    for path, key in (("multi_gpu_joint", "train"), ("multi_gpu_detect", "detect")):
+        rate = min(r[path]["img_per_s"] for r in ranks)
+        info[path] = {"img_per_s": rate, "local_img_per_s": local_rates[key],
+                      "ratio_to_one_card": rate / local_rates[key],
+                      "launches": ranks[0][path]["launches"],
+                      "launches_per_rank": [r[path]["launches"] for r in ranks],
+                      "max_memory_gb_per_rank": [r[path]["max_memory_gb"] for r in ranks]}
+        log(f"[multi_gpu {path}] {world} rank(s), global B={MP_B}: {json.dumps(info[path])}")
+    log(f"[multi_gpu checks] " + json.dumps(
+        [{"rank": r["rank"], "train": {k: r["train_check"][k] for k in
+                                        ("ok", "loss_rel_err", "worst_param_ratio")},
+          "detect": r["detect_check"]} for r in ranks]))
+    log(f"[multi_gpu] phase took {info['seconds']:.1f} s")
+    if bad:
+        raise RuntimeError(f"multi_gpu: {bad}")
+    return info, cases
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1934,6 +2138,8 @@ def main() -> int:
                  "loader_fed": loader_fed}
         cached, cached_cases = phase_cached_train(rates, root, tmp)
         cases.update(cached_cases)
+    multi, multi_cases = phase_multi_gpu({"train": tr["img_per_s"], "detect": det["img_per_s"]})
+    cases.update(multi_cases)
 
     units = {"detect": (det, BATCHES), "train": (tr, TRAIN_STEPS)}
     units.update({p: (info, BATCHES) for p, info in detects.items()})
@@ -1941,6 +2147,7 @@ def main() -> int:
     # this slice's paths: the launches of the whole run
     units.update({p: (loader["paths"][p], 1) for p in LOADER_PATHS})
     units.update({p: (cached["paths"][p], 1) for p in CACHED_PATHS})
+    units.update({p: (multi[p], 1) for p in MP_PATHS})  # rank 0's timed run
     launches = {p: {k: v // n for k, v in info["launches"].items()}
                 for p, (info, n) in units.items()}
     log(f"[launches] per call or step {launches}")
@@ -1950,7 +2157,8 @@ def main() -> int:
         json.dump({"card": card, "kernels": kernels,
                    "cases": dict(cases, topk_adversarial=adversarial, nms_later_step=nms_later),
                    "detect": det, "train": tr, "other_detect": detects, "four_step": four,
-                   "whole_path": whole, "loader_train": loader, "cached_train": cached},
+                   "whole_path": whole, "loader_train": loader, "cached_train": cached,
+                   "multi_gpu": multi},
                   f, indent=1)
     log(card["smi"])
     log(json.dumps({"kernels": kernels}))

@@ -3,8 +3,8 @@
 Counterpart of faster_rcnn_tpu/cli/common.py: the same flags, mapped onto
 the same config, without the JAX-only compile cache, and with ``--device``
 (``cuda`` by default; ``cpu`` runs the kernels' plain versions), the
-explicit device every entry point of the port takes. The JAX package's
-``--multihost`` is not here until multi-GPU training is ported.
+explicit device every entry point of the port takes. ``--multihost``
+trains one process per card under ``torchrun`` (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -57,6 +57,10 @@ def add_common_args(p: argparse.ArgumentParser, training: bool = True) -> None:
                             "(default: per-network preset; 'none' to train all)")
         p.add_argument("--flip", action="store_true", default=True)
         p.add_argument("--no-flip", dest="flip", action="store_false")
+        p.add_argument("--multihost", action="store_true",
+                       help="multi-process training: global mesh over all "
+                            "hosts' devices, per-host dataset shards "
+                            "(parallel/multihost.py); batch_size is global")
         p.add_argument("--uint8_pipeline", action="store_true", default=True,
                        help="ship raw uint8 RGB canvases to the device and "
                             "preprocess there (4x less H2D; default)")

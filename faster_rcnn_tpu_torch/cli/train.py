@@ -7,8 +7,14 @@ Counterpart of faster_rcnn_tpu/cli/train.py: the weight handoff between
 steps goes through the workdir's checkpoints, and a re-run resumes from
 them. Runs on the GPU (``--device cpu``: the plain versions on the CPU).
 ``--device_cache`` puts the whole uint8 dataset on the device and trains
-from it (train/device_cache.py). The JAX package's ``--multihost`` is not
-ported yet, so a command line that passes it fails.
+from it (train/device_cache.py). ``--multihost`` trains data-parallel, one
+process per card, ``--batch_size`` being the global batch:
+
+    torchrun --nproc_per_node 4 -m faster_rcnn_tpu_torch.cli.train --multihost ...
+
+It joins the process group first, before anything touches a card; under a
+multi-process launch a command line without it fails, and so does one with
+it outside such a launch.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from faster_rcnn_tpu_torch import resolve_device
 from faster_rcnn_tpu_torch.cli.common import (add_common_args, class_mapping_from_args,
                                               config_from_args)
 from faster_rcnn_tpu_torch.data.voc import load_dataset
+from faster_rcnn_tpu_torch.parallel.multihost import maybe_initialize
 from faster_rcnn_tpu_torch.train.trainer import run_four_step_training
 
 
@@ -37,6 +44,9 @@ def main(argv=None):
                    help="with --device_cache: steps enqueued between two reads "
                         "of the metrics (and checkpoint chances)")
     args = p.parse_args(argv)
+    if args.multihost:
+        # before any tensor reaches a card: it makes the local card current
+        maybe_initialize(require=True, device=args.device)
     device = resolve_device(args.device)
 
     cfg = config_from_args(args)
@@ -64,7 +74,8 @@ def main(argv=None):
     results = run_four_step_training(
         cfg, records, class_mapping, args.workdir, steps=steps,
         batch_size=args.batch_size, save_frequency=args.save_frequency,
-        seed=args.seed, use_device_cache=args.device_cache, device=device, **extra,
+        seed=args.seed, use_device_cache=args.device_cache, device=device,
+        multihost=args.multihost, **extra,
     )
     for s, r in results.items():
         print(f"step {s} final metrics: {r.final_metrics}")

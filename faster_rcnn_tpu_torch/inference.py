@@ -10,6 +10,12 @@ kernels (ops/*_cuda.py).
 The per-class NMS (voc_dets.py:76, thresh 0.5) uses the class-offset trick:
 each detection is shifted by class_id * 16384 so boxes of different classes
 never overlap, and one NMS does the work of C.
+
+Batch-sharded serving (``make_detect_fn(..., mesh=...)``, one process per
+card): the weights are replicated, each process detects its rows of the
+batch, and the fixed (B, D) detections are all-gathered, so that every
+process returns the whole batch's, as the JAX package's sharded
+``make_detect_fn`` does.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from faster_rcnn_tpu_torch import resolve_device
 from faster_rcnn_tpu_torch.config import FasterRcnnConfig
@@ -27,6 +34,7 @@ from faster_rcnn_tpu_torch.ops import boxes as box_ops
 from faster_rcnn_tpu_torch.ops import nms as nms_ops
 from faster_rcnn_tpu_torch.ops.roi_align_cuda import roi_align
 from faster_rcnn_tpu_torch.ops.targets import BBREG_MULTIPLIERS
+from faster_rcnn_tpu_torch.parallel import mesh as mesh_lib
 from faster_rcnn_tpu_torch.train import pipeline
 
 _CLASS_OFFSET = 16384.0  # larger than any image dim; small enough for fp32 IoU
@@ -69,7 +77,7 @@ def _decode_one_image(cfg: FasterRcnnConfig, rois, roi_valid, cls_prob, reg_out)
             ok)
 
 
-def make_detect_fn(cfg: FasterRcnnConfig, model: FasterRCNN, device=None):
+def make_detect_fn(cfg: FasterRcnnConfig, model: FasterRCNN, device=None, mesh=None):
     """Build ``detect(images, img_hw) -> Detections`` on ``device`` (CUDA by
     default; raises if there is none unless ``device='cpu'``).
 
@@ -77,9 +85,16 @@ def make_detect_fn(cfg: FasterRcnnConfig, model: FasterRCNN, device=None):
     mean subtraction run on the device) or float32 batches already
     preprocessed; ``img_hw`` is (B, 2) int, the actual (h, w) of each image
     on the canvas. Both may be numpy arrays or tensors.
+
+    ``mesh`` (a parallel/mesh.Mesh): every process passes the whole batch,
+    detects its rows of it (B must be a multiple of the mesh's data size)
+    and returns the whole batch's detections; rank 0's weights are copied
+    to every process when the function is built.
     """
     device = resolve_device(device)
     model = model.to(device).eval()
+    if mesh is not None:
+        mesh_lib.replicated(mesh, model.state_dict())
     consts = pipeline.build_constants(cfg, device)
     posv = pipeline._position_validity(cfg, device)
 
@@ -95,17 +110,45 @@ def make_detect_fn(cfg: FasterRcnnConfig, model: FasterRCNN, device=None):
         cls_prob = torch.softmax(cls_logits, dim=-1)
         return Detections(*_decode_one_image(cfg, pboxes, pvalid, cls_prob, reg_out))
 
-    return detect
+    if mesh is None:
+        return detect
+
+    def sharded_detect(images, img_hw) -> Detections:
+        if len(images) % mesh.data:
+            raise ValueError(f"batch {len(images)} is not a multiple of the mesh's data "
+                             f"size {mesh.data}")
+        part = mesh_lib.shard_batch(mesh, {"images": images, "img_hw": img_hw})
+        return _all_gather(detect(part["images"], part["img_hw"]), mesh)
+
+    return sharded_detect
+
+
+def _all_gather(dets: Detections, mesh) -> Detections:
+    """The whole batch's detections from every data shard's: the four
+    fields packed as f32 (the class ids and the valid flag are exact in
+    it), one all-gather over the mesh's data column, in rank order."""
+    packed = torch.cat([dets.boxes, dets.scores[..., None], dets.classes[..., None].float(),
+                        dets.valid[..., None].float()], -1).contiguous()
+    parts = [torch.empty_like(packed) for _ in range(mesh.data)]
+    dist.all_gather(parts, packed, group=mesh.data_group)
+    full = torch.cat(parts)
+    return Detections(full[..., :4].contiguous(), full[..., 4].contiguous(),
+                      full[..., 5].to(torch.int32), full[..., 6] != 0)
 
 
 def detections_to_records(dets: Detections, resize_ratios: List[float],
                           class_names: List[str]) -> List[List[Dict]]:
     """Detections -> per-image dicts in ORIGINAL image coords
-    (voc_dets.py:79-88: divide by resize ratio, round to int)."""
+    (voc_dets.py:79-88: divide by resize ratio, round to int).
+
+    A detection whose box is not finite is dropped: a regression output
+    past about 444 overflows ``exp`` in the decode, and such a box has no
+    integer coordinates (the JAX package's counterpart raises
+    ``OverflowError`` there). Finite boxes are kept as they are, unclipped."""
     boxes = dets.boxes.cpu().numpy()
     scores = dets.scores.cpu().numpy()
     classes = dets.classes.cpu().numpy()
-    valid = dets.valid.cpu().numpy()
+    valid = dets.valid.cpu().numpy() & np.isfinite(boxes).all(-1)
     out: List[List[Dict]] = []
     for i in range(boxes.shape[0]):
         ratio = resize_ratios[i]

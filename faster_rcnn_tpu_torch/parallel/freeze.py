@@ -14,6 +14,12 @@ Frozen sets (reference semantics): the backbone stages in
 scale parameter, and optionally whole top-level modules (``freeze_modules``,
 e.g. ``"backbone"``). Frozen parameters are set ``requires_grad=False``, so
 autograd computes no gradient for them, and they are never updated.
+
+Over a process mesh (parallel/mesh.py) the optimizer also does what XLA
+inserts in the JAX package's sharded step: it averages the trainable
+gradients over the mesh's data column, and its clip sees the norm of the
+whole logical parameters, VGG16's split fc head included
+(parallel/sharding.py).
 """
 
 from __future__ import annotations
@@ -22,10 +28,12 @@ from typing import Callable, Dict, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from faster_rcnn_tpu_torch.models.resnet import is_norm_param, resnet_param_block
 from faster_rcnn_tpu_torch.models.vgg import vgg_param_block
+from faster_rcnn_tpu_torch.parallel.sharding import split_dim
 
 
 def param_labels(model: nn.Module, network: str, freeze_blocks: Sequence[int],
@@ -91,12 +99,24 @@ class FreezeAwareOptimizer:
     copies. ``load_state_dict`` takes one back and puts each tensor on its
     parameter's device, at the load and again at each ``step()`` if the
     model has moved since, never on the device the dict came from.
+
+    ``mesh`` (a parallel/mesh.Mesh, or None on one process): ``step()``
+    first averages the trainable gradients over the mesh's data column, one
+    all-reduce of a flat buffer per dtype; each loss is a batch mean, so the
+    mean of equal shards' gradients is the global batch's gradient. The
+    clip's sum of squares over the parameters split on the model row
+    (``sharding.split_dim``, when the mesh's model size exceeds 1) is summed
+    over that row before the square root, so that a split run clips as the
+    replicated one does. The step makers of train/pipeline.py make a step
+    data-parallel by this alone: it averages the gradients, and they reduce
+    their metrics over ``optimizer.mesh``.
     """
 
     def __init__(self, model: nn.Module, network: str, freeze_blocks: Sequence[int],
                  learning_rate: Callable[[int], float] | float, optimizer: str = "sgd",
                  momentum: float = 0.9, weight_decay: float = 0.0,
-                 freeze_modules: Sequence[str] = (), clip_grad_norm: float = 0.0):
+                 freeze_modules: Sequence[str] = (), clip_grad_norm: float = 0.0,
+                 mesh=None):
         if optimizer not in ("sgd", "adam"):
             raise ValueError(f"unknown optimizer {optimizer}")
         self.labels = param_labels(model, network, freeze_blocks, freeze_modules)
@@ -112,6 +132,7 @@ class FreezeAwareOptimizer:
         self.weight_decay, self.clip = weight_decay, clip_grad_norm
         self.count = 0
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
+        self.mesh = mesh
 
     def zero_grad(self) -> None:
         for _, p, _ in self.params:
@@ -120,11 +141,13 @@ class FreezeAwareOptimizer:
     @torch.no_grad()
     def step(self) -> None:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for _, p, _ in self.params]
+        if self.mesh is not None:
+            grads = self._data_mean(grads)
         if self.weight_decay:
             wd = 2.0 * self.weight_decay
             grads = [g + wd * p if d else g for g, (_, p, d) in zip(grads, self.params)]
         if self.clip:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            norm = torch.sqrt(self._sum_of_squares(grads))
             keep = norm < self.clip
             grads = [torch.where(keep, g, g / norm * self.clip) for g in grads]
         step_size = -float(self.lr(self.count))
@@ -140,6 +163,34 @@ class FreezeAwareOptimizer:
                 upd = self._adam(g, st) * step_size
             p.add_(upd)
         self.count += 1
+
+    def _data_mean(self, grads):
+        """The gradients averaged over the mesh's data column: one
+        all-reduce of a flat buffer per dtype."""
+        out = list(grads)
+        by_dtype: Dict[torch.dtype, list] = {}
+        for i, g in enumerate(grads):
+            by_dtype.setdefault(g.dtype, []).append(i)
+        for idx in by_dtype.values():
+            flat = torch.cat([grads[i].reshape(-1) for i in idx])
+            dist.all_reduce(flat, group=self.mesh.data_group)
+            flat /= self.mesh.data
+            for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+                out[i] = part.view_as(grads[i])
+        return out
+
+    def _sum_of_squares(self, grads) -> torch.Tensor:
+        """The squared global norm of the logical parameters: on a mesh
+        that splits the fc head, its shards' share summed over the model
+        row."""
+        split = [self.mesh is not None and self.mesh.model > 1 and split_dim(name) is not None
+                 for name, _, _ in self.params]
+        total = sum(torch.sum(g * g) for g, s in zip(grads, split) if not s)
+        if any(split):
+            part = sum(torch.sum(g * g) for g, s in zip(grads, split) if s)
+            dist.all_reduce(part, group=self.mesh.model_group)
+            total = total + part
+        return total
 
     def _on_device(self, name: str, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         st = self.state[name]

@@ -18,6 +18,13 @@ Augmentation: the reference's per-record flip doubling (args_util.py:24-26)
 becomes a per-sample flip bit. Pixels mirror within the image's valid width
 (the padding columns mirror within the padding), and boxes map x -> w - x
 as ``GtBox.hflip`` does.
+
+Data parallel (``multihost=True``, one process per card): as the JAX
+package's replicated cache and batch-over-'data' scan, every process
+builds the whole cache on its own card and walks the same plan, and
+gathers only its own rows of each global batch, with its rows of the
+global draws; the step reduces the gradients and metrics over the
+processes, so a chunk equals the single-process chunk on the same plan.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ from faster_rcnn_tpu_torch import resolve_device
 from faster_rcnn_tpu_torch.config import FasterRcnnConfig
 from faster_rcnn_tpu_torch.data.pipeline import canvas_for, prepare_example
 from faster_rcnn_tpu_torch.data.voc import ImageRecord
+from faster_rcnn_tpu_torch.parallel import mesh as mesh_lib
+from faster_rcnn_tpu_torch.parallel import multihost as mh
 from faster_rcnn_tpu_torch.train import pipeline
 from faster_rcnn_tpu_torch.train import trainer
 from faster_rcnn_tpu_torch.train.schedule import total_iterations
@@ -257,6 +266,7 @@ def train_cached(
     devices=None,
     save_frequency: Optional[int] = None,
     device=None,
+    multihost: bool = False,
 ) -> trainer.TrainResult:
     """Drive one training step (1..4 or "joint") from the device cache.
 
@@ -276,21 +286,29 @@ def train_cached(
         advances as under the mixed-batch loader.
 
     Runs on CUDA unless ``device="cpu"``. ``devices`` (the JAX package's
-    data-parallel mesh) may name one device; more raise, until multi-GPU
-    training is ported (ROADMAP.md Queue 1 item 7).
+    data-parallel mesh of one process's devices) may name one device: the
+    port runs one process per card, and ``multihost=True`` trains
+    data-parallel over the processes of a ``torchrun`` launch (the module
+    docstring), ``batch_size`` being the global batch. A launch of several
+    processes without it raises.
     """
     if devices is not None:
         devices = list(devices)
         if len(devices) > 1:
-            raise NotImplementedError(
-                "train_cached on more than one device: data parallelism comes with "
-                "multi-GPU training (ROADMAP.md, Queue 1 item 7)")
+            raise ValueError(
+                "train_cached takes one device a process: for data parallelism launch one "
+                "process per card with torchrun and pass multihost=True")
         device = devices[0] if devices else device
     device = resolve_device(device)
+    mesh = trainer.data_parallel_mesh(multihost, "train_cached", device)
     batch_size = batch_size or cfg.train.batch_size
     save_frequency = save_frequency or cfg.train.save_frequency
     model, opt, step_fn_for = trainer.setup_step(step, cfg, init_params, rpn_params, seed,
-                                                 device)
+                                                 device, mesh)
+    if mesh is not None:
+        log_cb = log_cb if mh.rank() == 0 else (lambda *_: None)
+        lb = mh.local_batch_size(batch_size, mesh.data)
+        rows = slice(mesh.data_index * lb, (mesh.data_index + 1) * lb)
 
     buckets = build_device_dataset(records, class_mapping, cfg, device=device)
     total = total_iterations(cfg.train.phases)
@@ -299,6 +317,8 @@ def train_cached(
 
     ckpt_dir = os.path.join(workdir, f"step{step}")
     start = trainer.restore_state(ckpt_dir, model, opt)
+    if mesh is not None:  # one set of weights, whatever each rank's init drew
+        mesh_lib.replicated(mesh, model.state_dict())
     if start:
         log_cb(f"[cached step {step}] resumed from iteration {start}")
 
@@ -307,14 +327,15 @@ def train_cached(
     current = {"iter": start, "saved": start}
 
     def save(n: int) -> None:
-        trainer.save_state(ckpt_dir, n, model, opt)
+        trainer.save_state(ckpt_dir, n, model, opt, mesh)
         current["saved"] = n
 
     def on_signal(signum):
         if current["iter"] > current["saved"]:  # not already on disk
             log_cb(f"[cached step {step}] signal {signum}: checkpointing at "
                    f"iter {current['iter']}")
-            save(current["iter"])
+            # no meeting: the other processes may not be stopping
+            trainer.save_state(ckpt_dir, current["iter"], model, opt, mesh, meet=False)
 
     done = chunk_idx = 0
     with trainer.Preemption(on_signal) as guard:
@@ -337,10 +358,16 @@ def train_cached(
                     scan_fns[canvas] = make_scan_train_fn(step_fn_for(canvas)[0])
                 t0 = time.perf_counter()
                 guard.busy()
+                ids, fl, draws = idx[pos:pos + k], flip[pos:pos + k], gen
+                if mesh is not None:  # this rank's rows of each global batch and draws
+                    cfg_c = step_fn_for(canvas)[1]
+                    ids, fl = ids[:, rows], fl[:, rows]
+                    draws = [mh.global_draws(cfg_c, batch_size, gen, mesh) for _ in range(k)]
                 mstack = scan_fns[canvas](
                     buckets[canvas],
-                    torch.from_numpy(idx[pos:pos + k]).to(device, non_blocking=True),
-                    torch.from_numpy(flip[pos:pos + k]).to(device, non_blocking=True), gen)
+                    torch.from_numpy(np.ascontiguousarray(ids)).to(device, non_blocking=True),
+                    torch.from_numpy(np.ascontiguousarray(fl)).to(device, non_blocking=True),
+                    draws)
                 # the chunk's one read of the card: every metric's last value
                 last = torch.stack([v[-1].double() for v in mstack.values()]).tolist()
                 current["iter"] = done

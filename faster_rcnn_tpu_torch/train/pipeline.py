@@ -19,6 +19,13 @@ Batch layout: ``image`` (B, Hc, Wc, 3) raw RGB uint8 canvases or float32
 preprocessed pixels; ``gt_boxes`` (B, G, 4) float32 resized-image coords;
 ``gt_class`` (B, G) int; ``gt_valid`` (B, G) bool; ``img_hw`` (B, 2) int,
 the actual (h, w) of each image on the canvas.
+
+Data parallel (an optimizer built with a ``mesh``, a parallel/mesh.Mesh):
+each process steps on its rows of the global batch with its rows of the
+global draws (parallel/multihost.global_draws); the optimizer averages the
+gradients over the data column, and the step's metrics are reduced over it
+(the losses averaged, ``num_valid_images`` summed), so every process
+returns the global batch's metrics, as the JAX package's sharded step does.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from faster_rcnn_tpu_torch import resolve_device
 from faster_rcnn_tpu_torch.config import FasterRcnnConfig
@@ -199,16 +207,35 @@ def _det_losses(cfg: FasterRcnnConfig, model: FasterRCNN, feat, rois, cls_t, reg
     return l_cls.mean(), l_reg.mean()
 
 
-def _update(optimizer: FreezeAwareOptimizer, metrics: dict, mark) -> dict:
+def _update(optimizer: FreezeAwareOptimizer, metrics: dict, mark, num_valid=None) -> dict:
     """Backward of the sum of the losses in ``metrics`` and the optimizer's
-    step; returns the detached losses and ``loss``, their sum."""
+    step; returns the detached losses, ``loss``, their sum, and
+    ``num_valid_images`` where ``num_valid`` is given, reduced over the
+    optimizer's mesh, if it has one."""
     loss = sum(metrics.values())
     optimizer.zero_grad()
     loss.backward()
     mark("backward")
     optimizer.step()
     mark("optimizer")
-    return dict({k: v.detach() for k, v in metrics.items()}, loss=loss.detach())
+    out = dict({k: v.detach() for k, v in metrics.items()}, loss=loss.detach())
+    if num_valid is not None:
+        out["num_valid_images"] = num_valid
+    return reduce_metrics(out, optimizer.mesh)
+
+
+def reduce_metrics(metrics: dict, mesh) -> dict:
+    """The global batch's metrics from each data shard's: one all-reduce
+    over the mesh's data column, the losses averaged (each is a batch mean
+    over equal shards) and ``num_valid_images`` summed. Without a mesh,
+    ``metrics`` as they are."""
+    if mesh is None:
+        return metrics
+    names = list(metrics)
+    flat = torch.stack([metrics[k].float() for k in names])
+    dist.all_reduce(flat, group=mesh.data_group)
+    return {k: (v.to(metrics[k].dtype) if k == "num_valid_images" else v / mesh.data)
+            for k, v in zip(names, flat)}
 
 
 def _no_mark(_: str) -> None:
@@ -228,7 +255,8 @@ def make_rpn_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
     are read. ``freeze_blocks``/``freeze_modules`` are the spec the
     optimizer was built with (``train.trainer.step_freeze_spec``); the
     backbone runs its frozen prefix without autograd, all of it in step 3.
-    Runs on CUDA unless ``device="cpu"``.
+    Runs on CUDA unless ``device="cpu"``; data parallel when the optimizer
+    has a mesh (the module docstring).
     """
     device = resolve_device(device)
     model = model.to(device)
@@ -268,7 +296,10 @@ def make_det_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
     Returns ``step(batch, draws, mark=None) -> metrics`` (``det_cls``,
     ``det_reg``, ``num_valid_images``, ``loss``); ``draws`` and ``mark`` as
     for :func:`make_joint_train_step`, of which only the ROI sampler's draws
-    are read. Runs on CUDA unless ``device="cpu"``.
+    are read. Runs on CUDA unless ``device="cpu"``; data parallel when the
+    optimizer has a mesh (the module docstring), and tensor parallel too
+    with VGG16's fc head split over its model rows
+    (parallel/sharding.shard_vgg_head).
     """
     device = resolve_device(device)
     model = model.to(device)
@@ -294,8 +325,7 @@ def make_det_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
             mark("backbone")
         l_cls, l_reg = _det_losses(cfg, model, feat, rois, cls_t, reg_t, pos_m, ok)
         mark("roi_align_head")
-        return dict(_update(optimizer, {"det_cls": l_cls, "det_reg": l_reg}, mark),
-                    num_valid_images=ok.sum())
+        return _update(optimizer, {"det_cls": l_cls, "det_reg": l_reg}, mark, ok.sum())
 
     return step
 
@@ -317,7 +347,8 @@ def make_joint_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
     ``freeze_blocks``/``freeze_modules`` are the spec the optimizer was
     built with (default: ``cfg.model.freeze_blocks``, nothing
     module-frozen); the backbone runs the frozen prefix without autograd.
-    Runs on CUDA unless ``device="cpu"``.
+    Runs on CUDA unless ``device="cpu"``; data parallel when the optimizer
+    has a mesh (the module docstring).
     """
     device = resolve_device(device)
     model = model.to(device)
@@ -351,6 +382,6 @@ def make_joint_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
         mark("roi_align_head")
         metrics = {"rpn_cls": l_rcls.mean(), "rpn_reg": l_rreg.mean(),
                    "det_cls": l_dcls, "det_reg": l_dreg}
-        return dict(_update(optimizer, metrics, mark), num_valid_images=ok.sum())
+        return _update(optimizer, metrics, mark, ok.sum())
 
     return step

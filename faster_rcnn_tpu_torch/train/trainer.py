@@ -16,6 +16,13 @@ auto-resume and a checkpoint on SIGTERM/SIGINT (train/device_cache.py's
 setup, checkpoints and signals); :func:`run_four_step_training` chains the
 steps. As in the JAX package, iteration counts are in batches,
 and the learning-rate phases are a function of the optimizer's count.
+
+``multihost=True`` trains data-parallel, one process per card under
+``torchrun`` (parallel/multihost.py): each process loads its share of the
+records at the local batch size and steps on its rows of each global
+batch's draws, the gradients and metrics are reduced over the processes,
+rank 0 logs and writes the checkpoints, and every process meets the others
+after each write, so that what any of them reads next is on disk.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from faster_rcnn_tpu_torch.config import FasterRcnnConfig
 from faster_rcnn_tpu_torch.data.pipeline import TrainLoader
 from faster_rcnn_tpu_torch.data.voc import ImageRecord
 from faster_rcnn_tpu_torch.models.detector import FasterRCNN, init_model
+from faster_rcnn_tpu_torch.parallel import mesh as mesh_lib
+from faster_rcnn_tpu_torch.parallel import multihost as mh
 from faster_rcnn_tpu_torch.parallel.freeze import make_optimizer
 from faster_rcnn_tpu_torch.train import pipeline
 from faster_rcnn_tpu_torch.train.schedule import schedule_from_phases, total_iterations
@@ -98,6 +107,18 @@ def _draws(cfg: FasterRcnnConfig, batch_size: int, generator: torch.Generator):
     return pipeline.draw_samples(cfg, batch_size, generator)
 
 
+def data_parallel_mesh(multihost: bool, what: str, device: torch.device):
+    """The data-parallel mesh of a ``multihost`` run (over the process
+    group of parallel/multihost.maybe_initialize, which this calls), None
+    for a run on one process. Refuses a single-process run under a
+    multi-process launch."""
+    if not multihost:
+        mh.check_not_launched_alone(what)
+        return None
+    mh.maybe_initialize(require=True, device=device)
+    return mesh_lib.create_mesh()
+
+
 class _Transfer(NamedTuple):
     tensors: Dict[str, torch.Tensor]
     done: Optional[torch.cuda.Event]  # recorded on the copy stream
@@ -134,12 +155,12 @@ def _take(transfer: _Transfer, device: torch.device) -> Dict[str, torch.Tensor]:
 
 
 def setup_step(step, cfg: FasterRcnnConfig, init_params, rpn_params, seed: int,
-               device: torch.device):
+               device: torch.device, mesh=None):
     """What a training step runs: (the model, ``init_params`` loaded or the
     seeded init; the step's freeze-aware optimizer; ``step_fn_for(canvas)
     -> (step function, config)``, one of each per canvas, the
     landscape/portrait buckets). Steps 2 and 4 run the frozen RPN of
-    ``rpn_params``."""
+    ``rpn_params``. On a ``mesh`` the step functions are data-parallel."""
     is_rpn_step = step in (1, 3) or step == "joint"
     if not is_rpn_step and rpn_params is None:
         raise ValueError(f"step {step} needs the frozen RPN's rpn_params")
@@ -149,7 +170,7 @@ def setup_step(step, cfg: FasterRcnnConfig, init_params, rpn_params, seed: int,
         model, cfg.model.network, freeze_blocks, schedule_from_phases(cfg.train.phases),
         optimizer=cfg.train.optimizer, momentum=cfg.train.momentum,
         weight_decay=cfg.model.weight_decay, freeze_modules=freeze_modules,
-        clip_grad_norm=cfg.train.clip_grad_norm)
+        clip_grad_norm=cfg.train.clip_grad_norm, mesh=mesh)
     rpn_model = None if is_rpn_step else _model(cfg, rpn_params, seed, device).requires_grad_(False)
 
     step_fns: Dict = {}
@@ -172,12 +193,23 @@ def setup_step(step, cfg: FasterRcnnConfig, init_params, rpn_params, seed: int,
     return model, opt, step_fn_for
 
 
-def save_state(ckpt_dir: str, n: int, model: FasterRCNN, opt) -> None:
+def save_state(ckpt_dir: str, n: int, model: FasterRCNN, opt, mesh=None,
+               meet: bool = True) -> None:
     """The checkpoint of iteration ``n``: the model's and the optimizer's
     state dicts and the count (``cli.detect`` and the handoff read
-    ``model``)."""
-    ckpt_lib.save(ckpt_dir, n, {"model": model.state_dict(), "optimizer": opt.state_dict(),
-                                "count": n}, wait=True)
+    ``model``). In a data-parallel run (``mesh``) rank 0 writes it (every
+    rank holds the same state) and, with ``meet``, all ranks wait for the
+    write. A mesh that splits VGG16's fc head is refused: rank 0 holds only
+    its shards of the head and of their optimizer state, and no training
+    entry point splits it (parallel/sharding.py)."""
+    if mesh is not None and mesh.model > 1:
+        raise ValueError(f"save_state on a {mesh.data}x{mesh.model} mesh: a checkpoint of "
+                         "a split fc head would hold one rank's shards")
+    if mesh is None or mh.rank() == 0:
+        ckpt_lib.save(ckpt_dir, n, {"model": model.state_dict(),
+                                    "optimizer": opt.state_dict(), "count": n}, wait=True)
+    if mesh is not None and meet:
+        mh.barrier()
 
 
 def restore_state(ckpt_dir: str, model: FasterRCNN, opt) -> int:
@@ -247,6 +279,7 @@ def train_one_step(
     seed: int = 0,
     uint8_pipeline: bool = False,
     device=None,
+    multihost: bool = False,
 ) -> TrainResult:
     """Run one of the 4 training steps (1-4, or "joint") to completion, with
     auto-resume (faster_rcnn_tpu's ``train_one_step``, trainer.py:77-287).
@@ -271,20 +304,31 @@ def train_one_step(
 
     Each iteration's batch is copied to the device on a side stream while
     the step before runs, as the JAX trainer's one-batch lookahead.
+
+    ``multihost=True``: data parallel over the processes of a ``torchrun``
+    launch (the module docstring); ``batch_size`` is the global batch. A
+    launch of several processes without it raises.
     """
     device = resolve_device(device)
+    mesh = data_parallel_mesh(multihost, "train_one_step", device)
     batch_size = batch_size or cfg.train.batch_size
     save_frequency = save_frequency or cfg.train.save_frequency
-    model, opt, step_fn_for = setup_step(step, cfg, init_params, rpn_params, seed, device)
+    model, opt, step_fn_for = setup_step(step, cfg, init_params, rpn_params, seed, device, mesh)
+    primary = mesh is None or mh.rank() == 0
 
     ckpt_dir = os.path.join(workdir, f"step{step}")  # "stepjoint" for joint mode
     start_iter = restore_state(ckpt_dir, model, opt)
-    if start_iter:
+    if mesh is not None:  # one set of weights, whatever each rank's init drew
+        mesh_lib.replicated(mesh, model.state_dict())
+    if start_iter and primary:
         print(f"[step {step}] resumed from iteration {start_iter} "
               f"(optimizer count {opt.count})")
     total = max_steps if max_steps is not None else total_iterations(cfg.train.phases)
 
-    loader = TrainLoader(records, class_mapping, cfg, batch_size, seed=seed,
+    if mesh is not None:
+        records = mh.shard_records_for_host(records)
+    local_bs = batch_size if mesh is None else mh.local_batch_size(batch_size, mesh.data)
+    loader = TrainLoader(records, class_mapping, cfg, local_bs, seed=seed,
                          uint8=uint8_pipeline)
     it = iter(loader)
     step_id = step if isinstance(step, int) else 5  # "joint"
@@ -297,7 +341,8 @@ def train_one_step(
 
     def on_signal(signum):
         print(f"[step {step}] signal {signum}: checkpointing at iter {current['iter']}")
-        save_state(ckpt_dir, current["iter"], model, opt)
+        # no meeting: the other processes may not be stopping
+        save_state(ckpt_dir, current["iter"], model, opt, mesh, meet=False)
 
     metrics = {}
     t0 = time.time()
@@ -310,14 +355,16 @@ def train_one_step(
                 fn, cfg_c = step_fn_for(canvas)
                 batch = _take(transfer, device)
                 guard.busy()
-                metrics = fn(batch, _draws(cfg_c, batch_size, gen))
+                draws = (_draws(cfg_c, batch_size, gen) if mesh is None
+                         else mh.global_draws(cfg_c, batch_size, gen, mesh))
+                metrics = fn(batch, draws)
                 current["iter"] = i + 1
                 guard.idle()
                 # the next batch's copy rides under this step's kernels
                 nxt_canvas, nxt_host = next(it)
                 pending = (nxt_canvas, _put(nxt_host, device, copy_stream))
 
-                if (i + 1) % log_every == 0:
+                if (i + 1) % log_every == 0 and primary:
                     m = {k: float(v) for k, v in metrics.items()}
                     rate = (i + 1 - start_iter) * batch_size / (time.time() - t0)
                     print(f"[step {step}] iter {i+1}/{total} {m} ({rate:.2f} img/s)")
@@ -327,7 +374,7 @@ def train_one_step(
                                 + "\n")
                 if (i + 1) % save_frequency == 0 or (i + 1) == total:
                     guard.busy()
-                    save_state(ckpt_dir, i + 1, model, opt)
+                    save_state(ckpt_dir, i + 1, model, opt, mesh)
                     guard.idle()
         finally:
             it.close()  # stop the loader's prefetch workers (they'd leak otherwise)
@@ -359,12 +406,14 @@ def run_four_step_training(
         bad = [k for k in ("uint8_pipeline", "log_every", "max_steps") if kw.get(k)]
         if bad:
             raise ValueError(f"device-cache training does not support: {bad}")
-        kw = {k: v for k, v in kw.items() if k in
-              ("batch_size", "save_frequency", "seed", "devices", "chunk_steps", "device")}
+        kw = {k: v for k, v in kw.items() if k in ("batch_size", "save_frequency", "seed",
+                                                   "devices", "chunk_steps", "device",
+                                                   "multihost")}
         train_fn = train_cached
     else:
         train_fn = train_one_step
     resolve_device(kw.get("device"))  # no card: raise before any work
+    meet = bool(kw.get("multihost"))
     results: Dict = {}
     fresh = init_model(cfg.train.seed, cfg, "cpu").state_dict()
 
@@ -376,18 +425,18 @@ def run_four_step_training(
             r = train_fn(1, cfg, records, class_mapping, workdir, **kw)
             step1 = r.params
         elif s == 2:
-            rpn = step1 if step1 is not None else _load_step_params(workdir, 1)
+            rpn = step1 if step1 is not None else _load_step_params(workdir, 1, meet)
             r = train_fn(2, cfg, records, class_mapping, workdir,
                          init_params=fresh, rpn_params=rpn, **kw)
             step2 = r.params
         elif s == 3:
-            det2 = step2 if step2 is not None else _load_step_params(workdir, 2)
+            det2 = step2 if step2 is not None else _load_step_params(workdir, 2, meet)
             # backbone from step 2, rpn head fresh (train_rpn_step3.py:92-93)
             init = merge_params(fresh, det2, ["backbone"])
             r = train_fn(3, cfg, records, class_mapping, workdir, init_params=init, **kw)
             step3 = r.params
         elif s == 4:
-            rpn3 = step3 if step3 is not None else _load_step_params(workdir, 3)
+            rpn3 = step3 if step3 is not None else _load_step_params(workdir, 3, meet)
             init = merge_params(fresh, rpn3, ["backbone", "rpn_head"])
             r = train_fn(4, cfg, records, class_mapping, workdir,
                          init_params=init, rpn_params=rpn3, **kw)
@@ -397,7 +446,11 @@ def run_four_step_training(
     return results
 
 
-def _load_step_params(workdir: str, step) -> Dict[str, torch.Tensor]:
+def _load_step_params(workdir: str, step, meet: bool = False) -> Dict[str, torch.Tensor]:
     """A step's latest checkpointed model state dict, on the CPU (the
-    handoff, and the detect CLI's weights)."""
+    handoff, and the detect CLI's weights). In a multi-process run
+    (``meet``) every rank reads the file rank 0 wrote: all of them first
+    meet, so that no rank reads before an earlier step's write has ended."""
+    if meet:
+        mh.barrier()
     return ckpt_lib.restore(os.path.join(workdir, f"step{step}"))["model"]

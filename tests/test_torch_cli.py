@@ -62,10 +62,21 @@ def test_config_from_args_matches_jax(training, flags):
 
 
 def test_flags_of_unported_modules_fail_in_argparse(capsys):
-    for flag in ("--multihost",):
-        with pytest.raises(SystemExit):
-            ttrain.main(["--voc_paths", "x", flag, "--device", "cpu"])
-        assert "unrecognized arguments" in capsys.readouterr().err
+    """Every flag of the JAX package's CLIs is ported: the port's train
+    parser takes each of the JAX train parser's options (``--multihost``,
+    the last to come, with the JAX help text), and an option neither has
+    still fails in argparse."""
+    def options(common):
+        p = argparse.ArgumentParser()
+        common.add_common_args(p, training=True)
+        return {o: a.help for a in p._actions for o in a.option_strings}
+
+    jopts, topts = options(jcommon), options(tcommon)
+    assert set(jopts) <= set(topts)
+    assert topts["--multihost"] == jopts["--multihost"]
+    with pytest.raises(SystemExit):
+        ttrain.main(["--voc_paths", "x", "--no_such_flag", "--device", "cpu"])
+    assert "unrecognized arguments" in capsys.readouterr().err
 
 
 @pytest.fixture
@@ -117,25 +128,49 @@ def test_clis_raise_without_a_card_unless_asked_for_the_cpu(tree, monkeypatch):
     assert not os.path.exists(work) and not os.path.exists(dets)
 
 
-def test_an_overflowed_box_crashes_detections_to_records_in_both_packages():
-    """A known failure, pinned (ROADMAP.md Queue 3): a detector head whose
-    width and height outputs exceed 5 * 88.7 overflows exp(dw) in the box
-    decode, and detections_to_records, which the detect CLI calls, cannot
-    round the infinite box, in the port as in the JAX package. A fix
-    changes both packages' output, and this test with it."""
+def _overflowed_detections():
+    """Detections of 4 ROIs whose detector head's width and height outputs
+    (500) exceed 5 * 88.7: exp(dw) overflows in the box decode, in both
+    packages; and beside them one ROI whose outputs are 0, a finite box.
+    Returns (JAX config, port detections, JAX detections)."""
     jcfg = trainer_config()
-    c, r = jcfg.model.num_classes, 4
+    c, r = jcfg.model.num_classes, 5
     rois = np.array([[2, 2, 10, 12]] * r, np.float32) + np.arange(r, dtype=np.float32)[:, None]
     prob = np.full((r, c), 0.01 / (c - 1), np.float32)
     prob[:, 0] = 0.99
     reg = np.zeros((r, 4 * (c - 1)), np.float32)
-    reg[:, 2:4] = 500.0
+    reg[:4, 2:4] = 500.0
     tdets = tinference.Detections(*tinference._decode_one_image(
         port_config(jcfg), torch.tensor(rois)[None], torch.ones(1, r, dtype=torch.bool),
         torch.tensor(prob)[None], torch.tensor(reg)[None]))
     jdets = jinference.Detections(*(x[None] for x in jinference._decode_one_image(
         jcfg, jnp.asarray(rois), jnp.ones(r, bool), jnp.asarray(prob), jnp.asarray(reg))))
-    for inf, dets in ((tinference, tdets), (jinference, jdets)):
-        assert np.isinf(np.asarray(dets.boxes)[0, :, :2]).all()
-        with pytest.raises(OverflowError, match="infinity"):
-            inf.detections_to_records(dets, [1.0], [str(k) for k in range(c)])
+    for dets in (tdets, jdets):
+        boxes, valid = np.asarray(dets.boxes)[0], np.asarray(dets.valid)[0]
+        assert valid.sum() == 5 and np.isinf(boxes[valid]).any(-1).sum() == 4
+    return jcfg, tdets, jdets
+
+
+def test_an_overflowed_box_crashes_detections_to_records_in_jax():
+    """A known failure of the JAX package, pinned (ROADMAP.md Queue 3,
+    "Handled divergences"): detections_to_records, which the detect CLI
+    calls, cannot round an infinite box."""
+    jcfg, _, jdets = _overflowed_detections()
+    with pytest.raises(OverflowError, match="infinity"):
+        jinference.detections_to_records(jdets, [1.0], [str(k) for k in
+                                                        range(jcfg.model.num_classes)])
+
+
+def test_the_port_drops_an_overflowed_box_from_the_records():
+    """The port's detections_to_records drops the 4 detections whose boxes
+    overflowed and keeps the finite one beside them, as the JAX package
+    would write it (its box divided by the ratio and rounded, unclipped)."""
+    jcfg, tdets, _ = _overflowed_detections()
+    names = [str(k) for k in range(jcfg.model.num_classes)]
+    (recs,) = tinference.detections_to_records(tdets, [0.5], names)
+    boxes, valid = tdets.boxes[0].numpy(), tdets.valid[0].numpy()
+    finite = np.where(valid & np.isfinite(boxes).all(-1))[0]
+    assert len(finite) == 1 and len(recs) == 1
+    (rec,) = recs
+    assert rec["bbox"].tolist() == [int(round(x / 0.5)) for x in boxes[finite[0]]]
+    assert rec["cls_name"] == "0" and np.isfinite(rec["prob"])

@@ -420,7 +420,7 @@ def test_four_step_training_rejects_what_the_cache_cannot_do(mixed_voc, workdir,
         with pytest.raises(ValueError, match=opt):
             run(tc, recs, VOC_CLASS_MAPPING, workdir, steps=(1,), use_device_cache=True,
                 device="cpu", **{opt: 1})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(ValueError, match="one device a process"):
         run(tc, recs, VOC_CLASS_MAPPING, workdir, steps=(1,), use_device_cache=True,
             device="cpu", devices=["cpu", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -378,8 +378,10 @@ def test_kernels_launch_only_through_the_device_guarded_helper():
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    files = sorted((REPO / "faster_rcnn_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 15
+    files = (sorted((REPO / "faster_rcnn_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "scripts").glob("*_torch.py"))
+             + sorted((REPO / "scripts").glob("*_cuda.py")))
+    assert len(files) > 15 and REPO / "scripts" / "bench_multi_gpu_torch.py" in files
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {k: v for k, v in bad.items() if v}, bad
