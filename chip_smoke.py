@@ -12,7 +12,8 @@ Phases, each of which fails the run on any error:
      the plain version's time, a PyTorch library call's time where one
      computes the same function, and the bound from the H100's published
      peaks; K3 also on the proposals of a later joint train step; K1's
-     forward also its device time a launch from torch.profiler;
+     forward bit for bit, in the path's dtype and in f32 on the same values,
+     with its device time a launch from torch.profiler;
   4. detect: full-width ResNet-50 KITTI detection (608x1504 canvases, B=16,
      seeded random weights) through make_detect_fn, with the launch count of
      every kernel over the timed batches, a torch.profiler table of one
@@ -400,22 +401,35 @@ def profiled_device_us(fn, name: str, reps: int = 10, tries: int = 3) -> dict:
 
 
 def check_roi_align(label, feat, rois, p) -> dict:
+    """Bit for bit against the plain version, in the path's dtype and in
+    f32 on the same values (the kernel rounds each f32 operation as the
+    plain version's separate PyTorch kernels do, and bf16 once at the end);
+    the bound counts the touched map pixels and the output at the map's
+    element size."""
     feat, rois = feat.detach().contiguous(), rois.contiguous()
     with uncounted():
         got = roi_align_cuda.roi_align(feat, rois, p)
         want = roi_align_cuda.roi_align_plain(feat, rois, p)
         torch.cuda.synchronize()
-        err, ref = _rel_err(got, want)
+        err, _ = _rel_err(got, want)
+        bits = _bits_differing(got, want)
+        del want
+        f32 = feat.float()
+        bits32 = _bits_differing(roi_align_cuda.roi_align(f32, rois, p),
+                                 roi_align_cuda.roi_align_plain(f32, rois, p))
+        del f32
         ms = time_ms(lambda: roi_align_cuda.roi_align(feat, rois, p), 20)
         device = profiled_device_us(lambda: roi_align_cuda.roi_align(feat, rois, p),
                                     "roi_align_kernel")
     plain = time_ms(lambda: roi_align_cuda.roi_align_plain(feat, rois, p), 3, warmup=1)
     _, h, w, c = feat.shape
     pixels = touched_pixels(rois, h, w, p)
-    nbytes = pixels * c * feat.element_size() + rois.numel() * 4 + got.numel() * 2
-    c = _case(label, err <= 1e-2 * ref, err, ms, plain, None, nbytes, LERP_OPS * got.numel(),
-              F32_FLOPS, limit=1e-2 * ref, map_pixels_read=pixels, device_us=device)
-    _log_case("roi_align", c, f"{tuple(feat.shape)} x {tuple(rois.shape)} -> {tuple(got.shape)}")
+    nbytes = (pixels * c + got.numel()) * feat.element_size() + rois.numel() * 4
+    c = _case(label, bits == 0 and bits32 == 0, err, ms, plain, None, nbytes,
+              LERP_OPS * got.numel(), F32_FLOPS, bits_differing=bits, f32_bits_differing=bits32,
+              map_pixels_read=pixels, device_us=device)
+    _log_case("roi_align", c, f"{tuple(feat.shape)} x {tuple(rois.shape)} -> {tuple(got.shape)} "
+              f"{feat.dtype}; bits differing from the plain version {bits}, in f32 {bits32}")
     mean = device["mean_us"]
     log(f"[kernel roi_align {label}] device time a launch (torch.profiler, "
         f"{device['launches']} launches traced of 10): {mean} us, least {device['min_us']} us; "

@@ -3,33 +3,86 @@
 // backward, the 4-tap scatter-add of the pooled cotangent into the map.
 //
 // Replaces: faster_rcnn_tpu/ops/roi_align_pallas.py _kernel (pallas_call at
-// :178, driven by _forward :104, entry roi_align_pallas :195). Its backward
-// (_bwd :213) is no Pallas kernel there: XLA's transpose of the einsum form
-// roi_align_einsum, computed in f32 and cast to the feature dtype. The
-// backward kernel below is its counterpart.
+// :178, driven by _forward :104, entry roi_align_pallas :195). The TPU kernel
+// recast the resize as two dense matmuls with tap-weight matrices for the
+// MXU, over the ROIs sorted by y1 so that it could skip chunks of the map.
+// Its backward (_bwd :213) is no Pallas kernel there: XLA's transpose of the
+// einsum form roi_align_einsum, computed in f32 and cast to the feature
+// dtype. The backward kernel below is its counterpart.
 //
-// What bounds it on the H100: at B=16, 300 ROIs, a 38x94x1024 bf16 map it
-// must read the 117.1 MB feature map once and write 481.7 MB of pooled
-// features, 0.179 ms at 3.35 TB/s; the interpolation arithmetic is
-// negligible. It is memory-bound, and the output write dominates.
+// Forward. What bounds it on the H100: bytes. It must read the map pixels
+// that the ROIs' taps touch, once, and write the pooled output, once: at
+// B=16, 300 ROIs, a 38x94x1024 bf16 map, 52 MB of touched pixels and 481.7
+// MB of output, 0.159 ms at 3.35 TB/s; at one frame, 300 ROIs, C=512, 1.8 MB
+// and 15.1 MB, 5.0 us. The interpolation is 9 f32 operations a value, far
+// below the card's rate. The output dominates, and each output vector needs
+// four tap vectors, which the L2 (and L1, where cells share taps) serves.
 //
-// Design: the TPU kernel recast the resize as dense matmuls for the MXU and
-// sorted ROIs by y1 to skip chunks; none of that is needed here. One block
-// computes one output row i of one ROI: it works out the row taps once, then
-// for each output column j the column taps, and its threads run along the
-// channels with 16-byte vector loads from the NHWC map, so neighbouring
-// threads read neighbouring addresses and each tap read is one coalesced
-// sweep of C values. Interpolation is f32; the store is T (bf16 or f32).
+// Design: no matmul, so no tensor cores; the design is about bytes in
+// flight, idle lanes, instructions per output vector and the L2.
+//   * A block takes one ROI's cells, or a run of its cell rows (K1_SPLIT runs
+//     an ROI), for one chunk of K1_VECS = 32 16-byte vectors of channels
+//     (256 bf16 or 128 f32 channels): lane x of warp y owns vector x of the
+//     chunk in column j = y of every cell row, a (cell column, vector) map,
+//     so the paths' C (512 and 1024, 2 to 8 chunks) leave no lane idle. A
+//     warp reads 512 contiguous bytes of a tap pixel and writes 512 of the
+//     output; the 7 warps of a block read neighbouring columns of the same
+//     rows, which the L1 serves where cells share taps.
+//   * A frame's 300 ROIs make 600 to 2,400 blocks of 7 warps, one wave.
+//   * P is a template argument for the one pool size the paths use (7): one
+//     warp a column; other P take a generic instantiation (8 warps, the
+//     columns in turn).
+//   * The ROI's row taps are computed once a block, into shared memory, as
+//     map offsets (one 16-byte load a cell row); a thread computes its
+//     column's taps once, in registers. Per output vector: at most 4 loads,
+//     the lerps, 1 store and a few address adds.
+//   * A thread runs its column's cell rows in order, and a tap row that the
+//     row before used keeps its horizontal lerps in registers (the same
+//     operations on the same values, the same bits). Where a crop is under
+//     14 map rows, neighbouring cells share tap rows (the hi tap of cell i
+//     is the lo tap of cell i + 1, or cells repeat a row), and those cells
+//     need two thirds of the lerps. In bf16 every tap is loaded all the
+//     same and the 7 rows unroll, so their loads overlap; in f32, whose
+//     output is twice the bytes, a kept tap row is not loaded again, and
+//     its rows stay rolled (unrolled, f32 ran 29-38% slower). Tried and
+//     dropped, on the bench script's inputs: a flat (cell, vector) map (a
+//     division and shared taps per item); two rows' loads before their
+//     lerps with no reuse (faster at the joint step's tall crops, slower at
+//     detect); either beside the other in one kernel (92 registers); an L1
+//     prefetch of the next row's taps; K1_SPLIT = 2 or 7. The explicit
+//     minimum of one block in __launch_bounds__ gave 64 registers where
+//     none gave 68, and 4% at B=16 detect.
+//   * Stores are streaming (st.global.cs, with K1_STREAM): the write-once
+//     output is marked evict-first, so it does not push the map, which an
+//     image's ROIs read again and again, out of the L2.
+//   * The lerps are __fsub_rn, __fmul_rn and __fadd_rn in the plain
+//     version's order (ops/roi_align.py roi_align_batched): top = f00 +
+//     (f01 - f00) * fx, bot = f10 + (f11 - f10) * fx, top + (bot - top) * fy,
+//     in f32, so nvcc cannot contract them into FMAs and the kernel gives the
+//     plain version's bits in bf16 and in f32 (rounded once to bf16). The
+//     taps divide crop by P truly, as the plain version does.
 // The tap arithmetic repeats faster_rcnn_tpu/ops/roi_align.py _tap_weights
 // and the gather form roi_align: crop/P first, then i*(crop/P), floor, the
 // crop-1 clamp of the upper tap, then the [0, limit-1] clamp.
 #include <algorithm>
+#include <climits>
 
 #include "common.cuh"
 
+// The forward's tunables (scripts/bench_roi_align_cuda.py --define NAME=N
+// builds another choice): blocks an ROI's cell rows are cut into, and
+// streaming stores (0: plain stores).
+#ifndef K1_SPLIT
+#define K1_SPLIT 1
+#endif
+#ifndef K1_STREAM
+#define K1_STREAM 1
+#endif
+
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int K1_VECS = 32;          // vectors of channels a block takes: one a lane
+constexpr int K1_GENERIC_WARPS = 8;  // warps of a block for a pool size other than 7
 
 struct Taps {
   int lo, hi;
@@ -48,44 +101,96 @@ __device__ __forceinline__ Taps taps(int i, float start, float crop, int P, int 
   return t;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// a + (b - a) * f, each operation rounded on its own, as PyTorch's separate
+// elementwise kernels round them
+__device__ __forceinline__ float lerp_rn(float a, float b, float f) {
+  return __fadd_rn(a, __fmul_rn(__fsub_rn(b, a), f));
+}
+
+// PT: the pool size, or 0 for the generic instantiation (P from p_arg).
+// Block ((r * chunks + chunk) * K1_SPLIT + part, b) writes cell rows [i0,
+// i1) of ROI r of image b, vectors [chunk K1_VECS, (chunk + 1) K1_VECS) of
+// each cell; thread (x, y) the vector chunk K1_VECS + x of columns j = y, y +
+// blockDim.y, ... of those rows.
+template <typename T, int PT>
+__global__ void __launch_bounds__(K1_VECS * (PT > 0 ? PT : K1_GENERIC_WARPS), 1)
 roi_align_kernel(const T* __restrict__ feat, const float* __restrict__ rois, T* __restrict__ out,
-                 int H, int W, int C, int R, int P) {
-  const int b = blockIdx.y;
-  const int r = blockIdx.x / P;
-  const int i = blockIdx.x % P;
-  const float* roi = rois + ((size_t)b * R + r) * 4;
-  const float x1 = roi[0], y1 = roi[1];
-  const float crop_w = roi[2] - x1, crop_h = roi[3] - y1;
-  const Taps ty = taps(i, y1, crop_h, P, H);
-
+                 int H, int W, int C, int R, int p_arg) {
+  const int P = PT > 0 ? PT : p_arg;
+  extern __shared__ int4 rows[];  // [i1 - i0]: lo offset, hi offset, frac's bits
   constexpr int VN = Vec16<T>::N;
-  const int nvec = C / VN;
-  const T* fb = feat + (size_t)b * H * W * C;
-  const uint4* rowA = reinterpret_cast<const uint4*>(fb + (size_t)ty.lo * W * C);
-  const uint4* rowB = reinterpret_cast<const uint4*>(fb + (size_t)ty.hi * W * C);
-  T* ob = out + ((((size_t)b * R + r) * P + i) * P) * C;
+  const int nvec = C / VN, chunks = (nvec + K1_VECS - 1) / K1_VECS;
+  const int part = blockIdx.x % K1_SPLIT, chunk = blockIdx.x / K1_SPLIT % chunks;
+  const int b = blockIdx.y, r = blockIdx.x / K1_SPLIT / chunks;
+  const int i0 = part * P / K1_SPLIT, i1 = (part + 1) * P / K1_SPLIT;
+  const float* roi = rois + ((size_t)b * R + r) * 4;
+  const float x1 = roi[0], y1 = roi[1], crop_w = roi[2] - x1, crop_h = roi[3] - y1;
+  for (int k = threadIdx.y * K1_VECS + threadIdx.x; k < i1 - i0; k += K1_VECS * blockDim.y) {
+    const Taps t = taps(i0 + k, y1, crop_h, P, H);
+    rows[k] = make_int4(t.lo * W * nvec, t.hi * W * nvec, __float_as_int(t.frac), 0);
+  }
+  __syncthreads();
+  const int v = chunk * K1_VECS + threadIdx.x;
+  if (v >= nvec || i1 == i0) return;
 
-  for (int j = 0; j < P; ++j) {
+  const uint4* fb = reinterpret_cast<const uint4*>(feat + (size_t)b * H * W * C);
+  uint4* ob = reinterpret_cast<uint4*>(out + ((size_t)b * R + r) * P * P * C) + v;
+  for (int j = threadIdx.y; j < P; j += blockDim.y) {
     const Taps tx = taps(j, x1, crop_w, P, W);
-    const size_t a = (size_t)tx.lo * nvec, bo = (size_t)tx.hi * nvec;
-    uint4* o = reinterpret_cast<uint4*>(ob + (size_t)j * C);
-    for (int v = threadIdx.x; v < nvec; v += THREADS) {
-      Vec16<T> f00, f01, f10, f11, res;
-      f00.raw = rowA[a + v];
-      f01.raw = rowA[bo + v];
-      f10.raw = rowB[a + v];
-      f11.raw = rowB[bo + v];
-#pragma unroll
-      for (int k = 0; k < VN; ++k) {
-        const float p00 = to_f32(f00.v()[k]), p01 = to_f32(f01.v()[k]);
-        const float p10 = to_f32(f10.v()[k]), p11 = to_f32(f11.v()[k]);
-        const float top = p00 + (p01 - p00) * tx.frac;
-        const float bot = p10 + (p11 - p10) * tx.frac;
-        res.v()[k] = from_f32<T>(top + (bot - top) * ty.frac);
+    const int xa = tx.lo * nvec + v, xb = tx.hi * nvec + v;
+    // Rows in order. A cell row needs the horizontal lerps of its two tap
+    // rows (top and bot); where a tap row is one the row before used, its
+    // lerps are kept from there: the same operations on the same values,
+    // so the same bits. The branches follow the row taps, the same for the
+    // whole warp. In bf16 the four taps are loaded whether or not their
+    // lerps are kept, so that the unrolled rows' loads overlap (a kept tap
+    // row's pixels are the row before's, in L1); in f32, whose output is
+    // twice the bytes, only new tap rows are loaded, row by row.
+    constexpr bool load_all = sizeof(T) == 2;
+    constexpr int row_unroll = load_all && PT > 0 ? PT : 1;  // f32 runs slower unrolled
+    float top[VN], bot[VN];
+    int prev_lo = -1, prev_hi = -1;
+#pragma unroll(row_unroll)
+    for (int i = i0; i < i1; ++i) {
+      const int4 ty = rows[i - i0];
+      const bool top_new = ty.x != prev_lo && ty.x != prev_hi;
+      const bool bot_new = ty.y != ty.x && ty.y != prev_hi;
+      Vec16<T> a, c, d, e;
+      if (load_all || top_new) {
+        a.raw = fb[ty.x + xa];
+        c.raw = fb[ty.x + xb];
       }
-      o[v] = res.raw;
+      if (load_all || bot_new) {
+        d.raw = fb[ty.y + xa];
+        e.raw = fb[ty.y + xb];
+      }
+      if (top_new) {
+#pragma unroll
+        for (int k = 0; k < VN; ++k)
+          top[k] = lerp_rn(to_f32(a.v()[k]), to_f32(c.v()[k]), tx.frac);
+      } else if (ty.x == prev_hi) {
+#pragma unroll
+        for (int k = 0; k < VN; ++k) top[k] = bot[k];
+      }
+      if (bot_new) {
+#pragma unroll
+        for (int k = 0; k < VN; ++k)
+          bot[k] = lerp_rn(to_f32(d.v()[k]), to_f32(e.v()[k]), tx.frac);
+      } else if (ty.y == ty.x) {
+#pragma unroll
+        for (int k = 0; k < VN; ++k) bot[k] = top[k];
+      }
+      prev_lo = ty.x, prev_hi = ty.y;
+      const float fy = __int_as_float(ty.z);
+      Vec16<T> res;
+#pragma unroll
+      for (int k = 0; k < VN; ++k) res.v()[k] = from_f32<T>(lerp_rn(top[k], bot[k], fy));
+      uint4* o = ob + ((size_t)i * P + j) * nvec;
+#if K1_STREAM
+      __stcs(o, res.raw);
+#else
+      *o = res.raw;
+#endif
     }
   }
 }
@@ -93,9 +198,18 @@ roi_align_kernel(const T* __restrict__ feat, const float* __restrict__ rois, T* 
 template <typename T>
 int launch(const void* feat, const void* rois, void* out, int B, int H, int W, int C, int R,
            int P, void* stream) {
-  dim3 grid(R * P, B);
-  roi_align_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const T*)feat, (const float*)rois, (T*)out, H, W, C, R, P);
+  const int nvec = C / Vec16<T>::N, chunks = (nvec + K1_VECS - 1) / K1_VECS;
+  if ((long long)H * W * nvec > INT_MAX) return (int)cudaErrorInvalidValue;  // int offsets
+  const dim3 grid(R * chunks * K1_SPLIT, B);
+  const size_t smem = (size_t)(P + K1_SPLIT - 1) / K1_SPLIT * sizeof(int4);
+  if (P == 7) {
+    roi_align_kernel<T, 7><<<grid, dim3(K1_VECS, 7), smem, (cudaStream_t)stream>>>(
+        (const T*)feat, (const float*)rois, (T*)out, H, W, C, R, P);
+  } else {
+    roi_align_kernel<T, 0><<<grid, dim3(K1_VECS, std::min(P, K1_GENERIC_WARPS)), smem,
+                             (cudaStream_t)stream>>>(
+        (const T*)feat, (const float*)rois, (T*)out, H, W, C, R, P);
+  }
   return (int)cudaGetLastError();
 }
 

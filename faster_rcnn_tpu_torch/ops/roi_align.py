@@ -37,8 +37,11 @@ def roi_align_batched(features: torch.Tensor, rois: torch.Tensor,
     crop_h = rois[..., 3] - y1
 
     out_idx = torch.arange(p, dtype=torch.float32, device=features.device)
-    src_y = out_idx * (crop_h[..., None] / p)                     # (B, R, P)
-    src_x = out_idx * (crop_w[..., None] / p)
+    # crop / P by a true division on every device, as the kernels divide:
+    # PyTorch's CUDA kernel multiplies by the reciprocal of a Python number
+    p_t = torch.full((), float(p), device=features.device)
+    src_y = out_idx * (crop_h[..., None] / p_t)                   # (B, R, P)
+    src_x = out_idx * (crop_w[..., None] / p_t)
     y0 = torch.floor(src_y)
     x0 = torch.floor(src_x)
     fy = src_y - y0

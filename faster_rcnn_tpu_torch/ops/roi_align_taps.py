@@ -1,8 +1,9 @@
 """Where RoI align's taps land, counted on the host with numpy: which map
-rows and columns each ROI's cells weigh, the hits the K1 backward's blocks
-find on each map row (csrc/roi_align.cu, ``roi_align_bwd_kernel``), and the
-entries it sums into each pixel. The measurement scripts report these
-counts beside the kernels' times; nothing on the paths calls them.
+rows and columns each ROI's cells weigh, the tap rows the K1 forward loads
+(csrc/roi_align.cu, ``roi_align_kernel``), the hits the K1 backward's blocks
+find on each map row (``roi_align_bwd_kernel``), and the entries it sums
+into each pixel. The measurement scripts report these counts beside the
+kernels' times; nothing on the paths calls them.
 """
 
 from __future__ import annotations
@@ -13,6 +14,32 @@ import torch
 BWD_WARPS, BWD_HEAVY = 8, 64  # the backward kernel's split rule (csrc/roi_align.cu)
 
 
+def row_taps(starts, crops, p: int, limit: int) -> tuple:
+    """(lo, hi), each (B, R, P): the map row (or column) of each cell's two
+    taps, by the kernels' tap arithmetic in f32."""
+    src = np.arange(p, dtype=np.float32) * (crops[..., None] / np.float32(p))
+    lo = np.floor(src)
+    lo_abs = np.clip(lo + starts[..., None], 0, limit - 1).astype(np.int64)
+    hi_abs = np.clip(np.minimum(lo + 1, crops[..., None] - 1) + starts[..., None], 0,
+                     limit - 1).astype(np.int64)
+    return lo_abs, hi_abs
+
+
+def forward_loads(rois: torch.Tensor, h: int, p: int) -> float:
+    """The K1 forward's new tap-row pixels per output vector on these ROIs,
+    4 at most: a thread runs its column's cell rows in order and takes a
+    cell's lo tap row (two pixels) anew unless it is the row before's lo or
+    hi, and its hi tap row unless it is its own lo or the row before's hi.
+    The f32 kernel loads these; the bf16 kernel loads all 4 and computes
+    the horizontal lerps of these."""
+    lo, hi = row_taps(*roi_axes(rois)[0], p, h)
+    prev_lo = np.concatenate([np.full(lo.shape[:2] + (1,), -1), lo[..., :-1]], -1)
+    prev_hi = np.concatenate([np.full(hi.shape[:2] + (1,), -1), hi[..., :-1]], -1)
+    top_new = (lo != prev_lo) & (lo != prev_hi)
+    bot_new = (hi != lo) & (hi != prev_hi)
+    return float(2 * (top_new.mean() + bot_new.mean()))
+
+
 def tap_counts(starts, crops, p: int, limit: int, merged: bool = True) -> np.ndarray:
     """(B, R, limit): how many of each ROI's P cells put a tap of nonzero
     weight on each map row (or column), by the kernels' tap arithmetic in
@@ -21,9 +48,7 @@ def tap_counts(starts, crops, p: int, limit: int, merged: bool = True) -> np.nda
     it, as the K1 backward takes the two."""
     src = np.arange(p, dtype=np.float32) * (crops[..., None] / np.float32(p))
     lo = np.floor(src)
-    lo_abs = np.clip(lo + starts[..., None], 0, limit - 1).astype(np.int64)
-    hi_abs = np.clip(np.minimum(lo + 1, crops[..., None] - 1) + starts[..., None], 0,
-                     limit - 1).astype(np.int64)
+    lo_abs, hi_abs = row_taps(starts, crops, p, limit)
     upper = (src > lo) & ((hi_abs != lo_abs) | (not merged))
     out = np.zeros(lo.shape[:2] + (limit,), np.int64)
     bi, ri = np.indices(lo.shape[:2])

@@ -23,20 +23,29 @@ memory per rank, the launches of every kernel per rank over the timed
 steps, the host's own time in each call (until it returns, its kernels
 enqueued), for the joint step the device's busy share over one more step
 traced by ``torch.profiler``, and the losses of every step beside the
-one-card run's on the same global batch and draws. First, a check in f32 (TF32 off) at 2 images a
-card from bias-only RPN outputs: the data-parallel joint step against one
-card's on the whole batch (chip_smoke's limits: losses within 1e-4,
-parameters within 1e-3 of their largest change, 2e-2 in the RPN head), a
-``train_cached`` chunk of one joint step, data-parallel, against one card's
-on the same plan and draws (the same limits), and the sharded detect
-against one card's (the same detections); the script fails if any
-disagrees. Beside them, not checked, the floor of the cached comparison:
-one card's chunk against itself run with cuDNN's default algorithms, and
-for the 8 tensors furthest from one card's, their gap beside their floor.
-The check turns TF32 off and cuDNN's deterministic algorithms on, and
-puts both back as they were. Apart, the all-reduce of the joint step's
-trainable f32 gradients alone: bytes, ms (CUDA events over 20 calls), and
-bus bandwidth (bytes x 2(N-1)/N over the time). It prints the card's name
+one-card run's on the same global batch and draws. First, a check in f32
+(TF32 off, cuDNN's deterministic algorithms, both put back as they were
+after) at 2 images a card from bias-only RPN outputs: the data-parallel
+joint step against one card's on the whole batch (chip_smoke's limits:
+losses within 1e-4, parameters within 1e-3 of their largest change, 2e-2 in
+the RPN head), the sharded detect against one card's (the same
+detections), and a ``train_cached`` chunk of one joint step, data-parallel,
+clipped at 10 and not clipped, against its split-batch reference: the same
+chunk on card 0 alone with the batch cut into N shards of 2, in N processes
+joined by gloo (split_reference), so that each shard's convolutions run at
+the batch a rank sees. The chunk's updates before the parameters round
+them (SGD's first trace, read from its checkpoint) are held at the same
+limits, and so are its parameters where it is not clipped; clipped, the
+updates are small enough beside the parameters that one rounding of a
+parameter falling the other way can pass 1e-3 of a tensor's largest
+change, so its parameters' gaps print with that rounding quantum beside
+them. The script fails if any disagrees. Beside the gate, not checked: the
+chunk against one card's on the whole batch, the split reference against
+that (the gap the split alone makes), and for the 8 tensors furthest from
+the whole batch, the three gaps and the quantum side by side. Apart, the
+all-reduce of the joint step's trainable f32 gradients alone: bytes, ms
+(CUDA events over 20 calls), and bus bandwidth (bytes x 2(N-1)/N over the
+time). It prints the card's name
 and power limit, one JSON line per run, and writes everything to
 chiprun_out/bench_multi_gpu.json.
 """
@@ -44,6 +53,7 @@ chiprun_out/bench_multi_gpu.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -70,9 +80,11 @@ from faster_rcnn_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from faster_rcnn_tpu_torch.parallel import multihost, sharding  # noqa: E402
 from faster_rcnn_tpu_torch.parallel.freeze import make_optimizer, param_labels  # noqa: E402
 from faster_rcnn_tpu_torch.train import device_cache, pipeline, trainer  # noqa: E402
+from faster_rcnn_tpu_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 
 MAX_RANKS = 4
 CHECK_B = 2                          # images a card in the f32 check
+CHECK_CLIPS = (10.0, 0.0)            # the cached chunk's clips there (0: none)
 WARMUP, TIMED = 2, 5
 DETECT_TIMED = 3
 CACHED_CHUNK, CACHED_CHUNKS = 8, 4   # the first chunk is the warm-up
@@ -241,62 +253,166 @@ def _records(root: str) -> list:
     return records
 
 
-def f32_check(ctx: Ctx, root: str, mesh) -> dict:
-    """One joint step, one detect call and one ``train_cached`` chunk of
-    one joint step in f32 (TF32 off) at CHECK_B images a card, from
-    bias-only RPN outputs (chip_smoke's whole-path checks): over ``mesh``,
-    or on this card alone on the whole batch (the cached chunk: on the same
-    plan and draws). cuDNN runs its deterministic algorithms: so one card
-    repeats itself, and what differs is the data-parallel sum. On one card
-    the chunk runs once more with cuDNN's default algorithms, whose sums
-    run in other orders (``cached_default_algos``): how far that moves the
-    parameters is the comparison's floor of rounding. Returns the step's
-    and the chunks' (metrics, parameters, labels) and the detections. The
-    flags are as before on return."""
+@contextlib.contextmanager
+def f32_flags():
+    """TF32 off and cuDNN's deterministic algorithms on, so that one card
+    repeats itself; the flags as before on exit."""
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.deterministic)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+
+
+def f32_config() -> tuple:
+    """kitti_config() in f32 and its seeded weights with bias-only RPN
+    outputs (chip_smoke's whole-path checks)."""
     base = kitti_config()
     cfg = base.replace(model=dataclasses.replace(base.model, compute_dtype="float32"))
-    state = _bias_only_rpn(init_model(1, cfg, "cpu").state_dict(), cfg.anchors.num_anchors)
-    b = CHECK_B * ctx.world
-    rng = np.random.RandomState(5)
-    batch = kitti_train_batch(rng, b, cfg)
-    draws = pipeline.draw_samples(cfg, b, torch.Generator(device=ctx.dev).manual_seed(1))
-    step = _train_once(cfg, state, ctx.dev, batch, draws, plain=False, mesh=mesh)
-    img, hw = kitti_batch(rng, b, cfg)
-    dets = inference.make_detect_fn(cfg, _model(cfg, state, ctx.dev), ctx.dev, mesh=mesh)(img, hw)
+    return cfg, _bias_only_rpn(init_model(1, cfg, "cpu").state_dict(), cfg.anchors.num_anchors)
+
+
+def cached_f32(cfg, state, root: str, b: int, dev, work: str, clip: float,
+               multihost: bool) -> tuple:
+    """A ``train_cached`` chunk of one joint step at global batch ``b`` from
+    ``state``, the gradient clipped at ``clip`` (0: not clipped):
+    (metrics, parameters, labels, SGD's trace)."""
     ccfg = cfg.replace(train=dataclasses.replace(
-        cfg.train, phases=((1, 1e-3),), batch_size=b, clip_grad_norm=10.0,
+        cfg.train, phases=((1, 1e-3),), batch_size=b, clip_grad_norm=clip,
         save_frequency=10 ** 6))
     fb, fm = trainer.step_freeze_spec("joint", cfg)
     labels = param_labels(FasterRCNN(cfg), cfg.model.network, fb, fm)
+    res = device_cache.train_cached(
+        "joint", ccfg, _records(root), KITTI_CLASS_MAPPING, work, init_params=state,
+        chunk_steps=1, log_cb=lambda *_: None, device=dev, multihost=multihost)
+    # SGD's trace after its first step is the averaged, clipped gradient:
+    # the update before the parameters round it
+    opt = ckpt_lib.restore(os.path.join(work, "stepjoint"))["optimizer"]
+    trace = {n: st["trace"].cpu() for n, st in opt["state"].items()}
+    return res.final_metrics, {n: v.cpu() for n, v in res.params.items()}, labels, trace
 
-    def cached(work: str) -> tuple:
-        res = device_cache.train_cached(
-            "joint", ccfg, _records(root), KITTI_CLASS_MAPPING, os.path.join(ctx.tmp, work),
-            init_params=state, chunk_steps=1, log_cb=lambda *_: None, device=ctx.dev,
-            multihost=mesh is not None)
-        return res.final_metrics, {n: v.cpu() for n, v in res.params.items()}, labels
 
-    out = {"state": state, "step": step, "dets": dets}
-    if mesh is not None:
-        out["cached"] = cached("cached_f32_dp")
-    else:
-        out["cached"] = cached("cached_f32_one")
-        torch.backends.cudnn.deterministic = False
-        out["cached_default_algos"] = cached("cached_f32_one_default_algos")
-    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
-     torch.backends.cudnn.deterministic) = flags
+def f32_check(ctx: Ctx, root: str, mesh) -> dict:
+    """One joint step, one detect call and one ``train_cached`` chunk of
+    one joint step (clipped at 10 as the paths clip, and not clipped, as
+    the joint step here) in f32 at CHECK_B images a card, from bias-only RPN
+    outputs: over ``mesh``, or on this card alone on the whole batch (the
+    cached chunk: on the same plan and draws), under f32_flags(). Returns
+    the step's and the chunks' (metrics, parameters, labels) and the
+    detections."""
+    with f32_flags():
+        cfg, state = f32_config()
+        b = CHECK_B * ctx.world
+        rng = np.random.RandomState(5)
+        batch = kitti_train_batch(rng, b, cfg)
+        draws = pipeline.draw_samples(cfg, b, torch.Generator(device=ctx.dev).manual_seed(1))
+        step = _train_once(cfg, state, ctx.dev, batch, draws, plain=False, mesh=mesh)
+        img, hw = kitti_batch(rng, b, cfg)
+        dets = inference.make_detect_fn(cfg, _model(cfg, state, ctx.dev), ctx.dev,
+                                        mesh=mesh)(img, hw)
+        run = "one" if mesh is None else "dp"
+        cached = {clip: cached_f32(cfg, state, root, b, ctx.dev,
+                                   os.path.join(ctx.tmp, f"cached_f32_{run}_clip{clip:g}"), clip,
+                                   mesh is not None) for clip in CHECK_CLIPS}
+    return {"state": state, "step": step, "dets": dets, "cached": cached}
+
+
+def _split_rank(rank: int, shards: int, tmp: str, root: str) -> None:
+    torch.cuda.set_device(0)
+    store = dist.FileStore(os.path.join(tmp, "split_store"), shards)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=shards)
+    with f32_flags():
+        cfg, state = f32_config()
+        out = {clip: cached_f32(cfg, state, root, CHECK_B * shards, torch.device("cuda", 0),
+                                os.path.join(tmp, f"cached_f32_split_clip{clip:g}"), clip, True)
+               for clip in CHECK_CLIPS}
+    if rank == 0:
+        torch.save(out, os.path.join(tmp, "split.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def split_reference(root: str, shards: int, tmp: str) -> None:
+    """The reference of the data-parallel cached chunk: the same chunk with
+    its global batch cut into ``shards`` shards of CHECK_B images, on card 0
+    alone. ``train_cached(multihost=True)`` runs unchanged in ``shards``
+    processes on that card, joined by gloo (which all-reduces CUDA
+    tensors), so each shard's convolutions run at the batch a rank of the
+    N-card run sees, under the same algorithms, and the gradients are
+    averaged as there; only the order of the sum over the shards differs.
+    Writes {clip: (metrics, parameters, labels)} to ``tmp``/split.pt."""
+    torch.multiprocessing.start_processes(_split_rank, args=(shards, tmp, root), nprocs=shards,
+                                          join=True, start_method="spawn")
+
+
+def _quantum(before: torch.Tensor, want: torch.Tensor) -> float:
+    """One f32 unit in the last place of the tensor's largest parameter over
+    its largest change: what one rounding of ``before`` plus an update,
+    falling the other way, adds to ``_ratios``' measure at most."""
+    _, exp = torch.frexp(want.abs().max())
+    delta = (want - before).abs().max().item()
+    return float(torch.ldexp(torch.ones(()), exp - 24)) / delta if delta else float("inf")
+
+
+def _update_agreement(got: dict, want: dict, metrics_got: dict, metrics_want: dict) -> dict:
+    """The first step's updates before rounding (SGD's traces), per tensor
+    max|got - want| over max|want|: within 1e-3, 2e-2 in the RPN head, and
+    the losses within 1e-4 (chip_smoke._step_agreement's limits)."""
+    loss_err = max(abs(metrics_got[k] - w) / max(abs(w), 1e-12) for k, w in metrics_want.items())
+    worst = {"rpn_head": (0.0, ""), "rest": (0.0, "")}
+    for n, w in want.items():
+        delta, err = w.abs().max().item(), (got[n] - w).abs().max().item()
+        ratio = err / delta if delta > 0 else (0.0 if err == 0 else float("inf"))
+        group = "rpn_head" if n.startswith("rpn_head.") else "rest"
+        if ratio >= worst[group][0]:
+            worst[group] = (ratio, n)
+    ok = (loss_err <= 1e-4 and set(got) == set(want) and worst["rpn_head"][0] <= 2e-2
+          and worst["rest"][0] <= 1e-3)
+    return {"ok": ok, "loss_rel_err": loss_err, "worst_update_ratio": worst}
+
+
+def f32_verdict(one: dict, many: dict, split: dict) -> dict:
+    """The f32 check: the data-parallel joint step and detections against
+    one card's on the whole batch; the data-parallel cached chunk against
+    the split-batch reference, clipped and not (``cached_clip*``): its
+    updates before rounding (``gate``), and its parameters (``params``,
+    in the gate for the chunk that is not clipped); beside them, not
+    checked, against one card's chunk on the whole batch, with the 8
+    tensors furthest from that one: (name, their gap, the split
+    reference's gap to it, their gap to the split reference, their
+    rounding quantum). The clip at 10 shrinks the updates until one
+    parameter's rounding falling the other way (a quantum) can exceed 1e-3
+    of a tensor's largest change; the updates have no such floor."""
+    before = one["state"]
+    out = {"train": _step_agreement(before, many["step"], one["step"]),
+           "detect": _agreement(many["dets"], one["dets"])}
+    for clip in CHECK_CLIPS:
+        got, whole, ref = many["cached"][clip], one["cached"][clip], split[clip]
+        gap, floor, vs_split = (_ratios(before, got, whole), _ratios(before, ref, whole),
+                                _ratios(before, got, ref))
+        params = _step_agreement(before, got[:3], ref[:3])
+        update = _update_agreement(got[3], ref[3], got[0], ref[0])
+        out[f"cached_clip{clip:g}"] = {
+            "gate": dict(update, ok=update["ok"] and (clip > 0 or params["ok"])),
+            "params": params,
+            "whole_batch": _step_agreement(before, got[:3], whole[:3]),
+            "split_vs_whole_batch": _step_agreement(before, ref[:3], whole[:3]),
+            "worst_vs_split": (lambda n: (vs_split[n], n, _quantum(before[n], ref[1][n])))(
+                max(vs_split, key=vs_split.get)),
+            "top": [(n, gap[n], floor[n], vs_split[n], _quantum(before[n], whole[1][n]))
+                    for n in sorted(gap, key=gap.get, reverse=True)[:8]]}
     return out
 
 
 def _ratios(before: dict, got: tuple, want: tuple) -> dict:
     """Per trainable tensor, max|got - want| over its largest change on the
     ``want`` side (``_step_agreement``'s measure)."""
-    (_, gp, labels), (_, wp, _) = got, want
+    (_, gp, labels), (_, wp, _) = got[:3], want[:3]
     out = {}
     for n, lab in labels.items():
         if lab == "train":
@@ -340,16 +456,8 @@ def _rank(rank: int, world: int, tmp: str, root: str) -> None:
     one = ctx.one_card(lambda: f32_check(ctx, root, None))
     many = f32_check(ctx, root, ctx.mesh)
     if rank == 0:  # the sharded detections are the whole batch's on every rank
-        out["f32_check"] = {"train": _step_agreement(one["state"], many["step"], one["step"]),
-                            "detect": _agreement(many["dets"], one["dets"]),
-                            "cached": _step_agreement(one["state"], many["cached"],
-                                                      one["cached"]),
-                            "cached_floor": _step_agreement(
-                                one["state"], one["cached_default_algos"], one["cached"])}
-        gap = _ratios(one["state"], many["cached"], one["cached"])
-        floor = _ratios(one["state"], one["cached_default_algos"], one["cached"])
-        out["f32_check"]["cached_top"] = [(n, gap[n], floor[n]) for n in
-                                          sorted(gap, key=gap.get, reverse=True)[:8]]
+        split = torch.load(os.path.join(tmp, "split.pt"), weights_only=False)
+        out["f32_check"] = f32_verdict(one, many, split)
     del one, many
     ctx.wait()
     torch.cuda.empty_cache()
@@ -383,15 +491,22 @@ def summarize(ranks: list, world: int) -> dict:
             summary[name] = {"train_ok": c["train"]["ok"],
                              "loss_rel_err": c["train"]["loss_rel_err"],
                              "worst_param_ratio": c["train"]["worst_param_ratio"],
-                             "cached_ok": c["cached"]["ok"],
-                             "cached_loss_rel_err": c["cached"]["loss_rel_err"],
-                             "cached_worst_param_ratio": c["cached"]["worst_param_ratio"],
-                             "cached_metrics": c["cached"]["metrics"],
-                             "cached_floor_worst_param_ratio":
-                                 c["cached_floor"]["worst_param_ratio"],
-                             "cached_top_gap_and_floor": c["cached_top"],
                              "detect_valid_equal": c["detect"]["valid_a"] == c["detect"]["valid_b"],
                              "detect_close_frac": c["detect"]["close_frac"]}
+            for clip in CHECK_CLIPS:
+                k = f"cached_clip{clip:g}"
+                summary[name][k] = {
+                    "ok": c[k]["gate"]["ok"], "loss_rel_err": c[k]["gate"]["loss_rel_err"],
+                    "worst_update_ratio": c[k]["gate"]["worst_update_ratio"],
+                    "params_ok": c[k]["params"]["ok"],
+                    "worst_param_ratio": c[k]["params"]["worst_param_ratio"],
+                    "worst_vs_split_and_quantum": c[k]["worst_vs_split"],
+                    "whole_batch_worst_param_ratio": c[k]["whole_batch"]["worst_param_ratio"],
+                    "whole_batch_loss_rel_err": c[k]["whole_batch"]["loss_rel_err"],
+                    "split_vs_whole_batch_worst_param_ratio":
+                        c[k]["split_vs_whole_batch"]["worst_param_ratio"],
+                    "metrics": c[k]["params"]["metrics"],
+                    "top_gap_floor_vs_split_quantum": c[k]["top"]}
             continue
         one = ranks[0][name]["one_card"]
         many = [r[name]["distributed"] for r in ranks]
@@ -459,6 +574,7 @@ def main() -> int:
         root = os.path.join(tmp, "kitti")
         kitti_synth.build_kitti_synth_dataset(root, KITTI_CLASS_MAPPING, n_train=CACHED_FRAMES,
                                               n_val=0)
+        split_reference(root, world, tmp)
         torch.multiprocessing.start_processes(_rank, args=(world, tmp, root), nprocs=world,
                                               join=True, start_method="spawn")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
@@ -479,8 +595,8 @@ def main() -> int:
     print(json.dumps({"world": world, "seconds": time.perf_counter() - t0,
                       "card": smi[0]}), flush=True)
     check = summary["f32_check"]
-    if not (check["train_ok"] and check["cached_ok"] and check["detect_valid_equal"]
-            and check["detect_close_frac"] == 1.0):
+    if not (check["train_ok"] and check["detect_valid_equal"] and check["detect_close_frac"] == 1.0
+            and all(check[f"cached_clip{clip:g}"]["ok"] for clip in CHECK_CLIPS)):
         print(f"bench_multi_gpu_torch: the f32 check failed: {check}", file=sys.stderr)
         return 1
     return 0

@@ -84,21 +84,34 @@ def test_conv1_bf16_kernel_keeps_a_bad_pixel_in_its_windows(cuda, bad):
     assert torch.equal(got[fin].view(torch.int16), want[fin].view(torch.int16))
 
 
-@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 1e-2), (torch.float32, 1e-5)])
-def test_roi_align_kernel_matches_plain(cuda, dtype, rel):
+def _bits(a, b) -> int:
+    as_int = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(as_int) != b.view(as_int)).sum())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [64, 512])
+@pytest.mark.parametrize("p", [7, 5, 9])
+def test_roi_align_kernel_matches_plain(cuda, dtype, c, p):
+    """K1 forward bit for bit against its plain version and its numpy model
+    (tests/test_torch_roi_align_fwd.py), in bf16 and f32, on ROIs with the
+    edge cases among them: one-pixel ROIs, ROIs on the map's last row and
+    column, crops under 7 and multiples of 7; at C = 64 (one chunk, part
+    empty) and 512 (two chunks in bf16, four in f32); at the paths' P = 7
+    and the generic instantiation (5, and 9: two columns for some warps)."""
+    from tests.test_torch_roi_align_fwd import kernel_model, path_rois
+
     rng = np.random.RandomState(1)
-    b, h, w, c, r = 2, 19, 33, 64, 40
-    feat = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=dtype, device=cuda)
-    x1 = rng.randint(0, w - 2, (b, r))
-    y1 = rng.randint(0, h - 2, (b, r))
-    x2 = np.maximum(np.minimum(x1 + rng.randint(1, 20, (b, r)), w - 1), x1 + 1)
-    y2 = np.maximum(np.minimum(y1 + rng.randint(1, 12, (b, r)), h - 1), y1 + 1)
-    rois = np.stack([x1, y1, x2, y2], -1).astype(np.float32)
-    rois[0, 0] = [4, 3, 5, 4]  # a single pixel
-    rois = torch.tensor(rois, device=cuda)
-    got = roi_align_cuda.roi_align(feat, rois, 7)
-    _close(got, roi_align_cuda.roi_align_plain(feat, rois, 7), rel)
-    assert torch.equal(got[0, 0], feat[0, 3, 4].expand(7, 7, c))
+    b, h, w, r = 2, 19, 33, 40
+    feat = torch.tensor(rng.standard_normal((b, h, w, c)) * 4, dtype=dtype, device=cuda)
+    rois_np = path_rois(rng, b, r, h, w)
+    rois = torch.tensor(rois_np, device=cuda)
+    got = roi_align_cuda.roi_align(feat, rois, p)
+    assert got.shape == (b, r, p, p, c) and got.dtype == dtype
+    assert _bits(got, roi_align_cuda.roi_align_plain(feat, rois, p)) == 0
+    assert torch.equal(got[0, 0], feat[0, 3, 4].expand(p, p, c))
+    model, _ = kernel_model(feat.float().cpu().numpy(), rois_np, p, 16 // feat.element_size())
+    assert _bits(got.cpu(), torch.from_numpy(model).to(dtype)) == 0
 
 
 def nms_case(kind: str, b: int, n: int, n_valid: int, seed: int = 2):
@@ -446,8 +459,9 @@ def test_stem_without_bias_matches_plain(cuda):
 def test_roi_align_at_the_vgg_step2_input(cuda):
     """K1 forward and backward on a VGG16 step-2 input (16 x 64 ROIs over a
     38x94x512 bf16 map: two 256-channel chunks a map row) against their
-    plain versions, the backward twice with the same bits, and on two of
-    the images bit for bit against the numpy model of its algorithm."""
+    plain versions, the forward bit for bit in bf16 and in f32, the
+    backward twice with the same bits, and on two of the images bit for bit
+    against the numpy model of its algorithm."""
     from tests.test_torch_roi_align_bwd import model_bf16
 
     rng = np.random.RandomState(9)
@@ -456,8 +470,9 @@ def test_roi_align_at_the_vgg_step2_input(cuda):
     rois[:, r // 2:] = rois[:, :r - r // 2]  # repeated ROIs, as the sampler draws
     t_rois = torch.tensor(rois, device=cuda)
     feat = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=torch.bfloat16, device=cuda)
-    _close(roi_align_cuda.roi_align(feat, t_rois, 7),
-           roi_align_cuda.roi_align_plain(feat, t_rois, 7), 1e-2)
+    for f in (feat, feat.float()):
+        assert _bits(roi_align_cuda.roi_align(f, t_rois, 7),
+                     roi_align_cuda.roi_align_plain(f, t_rois, 7)) == 0
     g = torch.tensor(rng.standard_normal((b, r, 7, 7, c)), dtype=torch.bfloat16, device=cuda)
     got = roi_align_cuda.roi_align_backward(g, t_rois, (b, h, w, c), 7)
     again = roi_align_cuda.roi_align_backward(g, t_rois, (b, h, w, c), 7)

@@ -87,7 +87,7 @@ def _rank_main(rank: int, world: int, init: str, legs: list, out: str, env: dict
     os.environ.update({k: str(v).replace("{rank}", str(rank)) for k, v in env.items()})
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
     try:
-        results = {name: LEGS[name](**kw) for name, kw in legs}
+        results = {name: LEGS[name.split("/")[0]](**kw) for name, kw in legs}
         torch.save(results, os.path.join(out, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -97,7 +97,8 @@ def run_ranks(tmp, legs: list, env: dict | None = None, world: int = WORLD,
               meanwhile=None) -> tuple:
     """Run ``legs``, a list of (name in LEGS, keyword arguments), in order in
     each of ``world`` gloo processes, and ``meanwhile()`` here while they
-    run. Returns (every rank's {name: result}, what ``meanwhile``
+    run; "name/label" runs leg ``name`` once more under another key. Returns
+    (every rank's {name: result}, what ``meanwhile``
     returned). ``env`` is set in each process, "{rank}" in a value replaced
     by its rank. A failure in any process fails the call."""
     out = os.path.join(str(tmp), "ranks")
