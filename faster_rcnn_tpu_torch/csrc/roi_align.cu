@@ -20,11 +20,11 @@
 //
 // Design: no matmul, so no tensor cores; the design is about bytes in
 // flight, idle lanes, instructions per output vector and the L2.
-//   * A block takes one ROI's cells, or a run of its cell rows (K1_SPLIT runs
-//     an ROI), for one chunk of K1_VECS = 32 16-byte vectors of channels
-//     (256 bf16 or 128 f32 channels): lane x of warp y owns vector x of the
-//     chunk in column j = y of every cell row, a (cell column, vector) map,
-//     so the paths' C (512 and 1024, 2 to 8 chunks) leave no lane idle. A
+//   * A block takes one ROI's cells for one chunk of K1_VECS = 32 16-byte
+//     vectors of channels (256 bf16 or 128 f32 channels): lane x of warp y
+//     owns vector x of the chunk in column j = y of every cell row, a (cell
+//     column, vector) map, so the paths' C (512 and 1024, 2 to 8 chunks)
+//     leave no lane idle. A
 //     warp reads 512 contiguous bytes of a tap pixel and writes 512 of the
 //     output; the 7 warps of a block read neighbouring columns of the same
 //     rows, which the L1 serves where cells share taps.
@@ -49,12 +49,12 @@
 //     division and shared taps per item); two rows' loads before their
 //     lerps with no reuse (faster at the joint step's tall crops, slower at
 //     detect); either beside the other in one kernel (92 registers); an L1
-//     prefetch of the next row's taps; K1_SPLIT = 2 or 7. The explicit
-//     minimum of one block in __launch_bounds__ gave 64 registers where
-//     none gave 68, and 4% at B=16 detect.
-//   * Stores are streaming (st.global.cs, with K1_STREAM): the write-once
-//     output is marked evict-first, so it does not push the map, which an
-//     image's ROIs read again and again, out of the L2.
+//     prefetch of the next row's taps; an ROI's cell rows cut over 2 or 7
+//     blocks. The explicit minimum of one block in __launch_bounds__ gave
+//     64 registers where none gave 68, and 4% at B=16 detect.
+//   * Stores are streaming (st.global.cs; plain stores ran 1-15% slower):
+//     the write-once output is marked evict-first, so it does not push the
+//     map, which an image's ROIs read again and again, out of the L2.
 //   * The lerps are __fsub_rn, __fmul_rn and __fadd_rn in the plain
 //     version's order (ops/roi_align.py roi_align_batched): top = f00 +
 //     (f01 - f00) * fx, bot = f10 + (f11 - f10) * fx, top + (bot - top) * fy,
@@ -68,16 +68,6 @@
 #include <climits>
 
 #include "common.cuh"
-
-// The forward's tunables (scripts/bench_roi_align_cuda.py --define NAME=N
-// builds another choice): blocks an ROI's cell rows are cut into, and
-// streaming stores (0: plain stores).
-#ifndef K1_SPLIT
-#define K1_SPLIT 1
-#endif
-#ifndef K1_STREAM
-#define K1_STREAM 1
-#endif
 
 namespace {
 
@@ -108,30 +98,28 @@ __device__ __forceinline__ float lerp_rn(float a, float b, float f) {
 }
 
 // PT: the pool size, or 0 for the generic instantiation (P from p_arg).
-// Block ((r * chunks + chunk) * K1_SPLIT + part, b) writes cell rows [i0,
-// i1) of ROI r of image b, vectors [chunk K1_VECS, (chunk + 1) K1_VECS) of
-// each cell; thread (x, y) the vector chunk K1_VECS + x of columns j = y, y +
-// blockDim.y, ... of those rows.
+// Block (r * chunks + chunk, b) writes the cells of ROI r of image b,
+// vectors [chunk K1_VECS, (chunk + 1) K1_VECS) of each; thread (x, y) the
+// vector chunk K1_VECS + x of columns j = y, y + blockDim.y, ... of every
+// cell row.
 template <typename T, int PT>
 __global__ void __launch_bounds__(K1_VECS * (PT > 0 ? PT : K1_GENERIC_WARPS), 1)
 roi_align_kernel(const T* __restrict__ feat, const float* __restrict__ rois, T* __restrict__ out,
                  int H, int W, int C, int R, int p_arg) {
   const int P = PT > 0 ? PT : p_arg;
-  extern __shared__ int4 rows[];  // [i1 - i0]: lo offset, hi offset, frac's bits
+  extern __shared__ int4 rows[];  // [P]: lo offset, hi offset, frac's bits
   constexpr int VN = Vec16<T>::N;
   const int nvec = C / VN, chunks = (nvec + K1_VECS - 1) / K1_VECS;
-  const int part = blockIdx.x % K1_SPLIT, chunk = blockIdx.x / K1_SPLIT % chunks;
-  const int b = blockIdx.y, r = blockIdx.x / K1_SPLIT / chunks;
-  const int i0 = part * P / K1_SPLIT, i1 = (part + 1) * P / K1_SPLIT;
+  const int b = blockIdx.y, r = blockIdx.x / chunks, chunk = blockIdx.x % chunks;
   const float* roi = rois + ((size_t)b * R + r) * 4;
   const float x1 = roi[0], y1 = roi[1], crop_w = roi[2] - x1, crop_h = roi[3] - y1;
-  for (int k = threadIdx.y * K1_VECS + threadIdx.x; k < i1 - i0; k += K1_VECS * blockDim.y) {
-    const Taps t = taps(i0 + k, y1, crop_h, P, H);
+  for (int k = threadIdx.y * K1_VECS + threadIdx.x; k < P; k += K1_VECS * blockDim.y) {
+    const Taps t = taps(k, y1, crop_h, P, H);
     rows[k] = make_int4(t.lo * W * nvec, t.hi * W * nvec, __float_as_int(t.frac), 0);
   }
   __syncthreads();
   const int v = chunk * K1_VECS + threadIdx.x;
-  if (v >= nvec || i1 == i0) return;
+  if (v >= nvec) return;
 
   const uint4* fb = reinterpret_cast<const uint4*>(feat + (size_t)b * H * W * C);
   uint4* ob = reinterpret_cast<uint4*>(out + ((size_t)b * R + r) * P * P * C) + v;
@@ -151,8 +139,8 @@ roi_align_kernel(const T* __restrict__ feat, const float* __restrict__ rois, T* 
     float top[VN], bot[VN];
     int prev_lo = -1, prev_hi = -1;
 #pragma unroll(row_unroll)
-    for (int i = i0; i < i1; ++i) {
-      const int4 ty = rows[i - i0];
+    for (int i = 0; i < P; ++i) {
+      const int4 ty = rows[i];
       const bool top_new = ty.x != prev_lo && ty.x != prev_hi;
       const bool bot_new = ty.y != ty.x && ty.y != prev_hi;
       Vec16<T> a, c, d, e;
@@ -186,11 +174,7 @@ roi_align_kernel(const T* __restrict__ feat, const float* __restrict__ rois, T* 
 #pragma unroll
       for (int k = 0; k < VN; ++k) res.v()[k] = from_f32<T>(lerp_rn(top[k], bot[k], fy));
       uint4* o = ob + ((size_t)i * P + j) * nvec;
-#if K1_STREAM
       __stcs(o, res.raw);
-#else
-      *o = res.raw;
-#endif
     }
   }
 }
@@ -200,8 +184,8 @@ int launch(const void* feat, const void* rois, void* out, int B, int H, int W, i
            int P, void* stream) {
   const int nvec = C / Vec16<T>::N, chunks = (nvec + K1_VECS - 1) / K1_VECS;
   if ((long long)H * W * nvec > INT_MAX) return (int)cudaErrorInvalidValue;  // int offsets
-  const dim3 grid(R * chunks * K1_SPLIT, B);
-  const size_t smem = (size_t)(P + K1_SPLIT - 1) / K1_SPLIT * sizeof(int4);
+  const dim3 grid(R * chunks, B);
+  const size_t smem = (size_t)P * sizeof(int4);
   if (P == 7) {
     roi_align_kernel<T, 7><<<grid, dim3(K1_VECS, 7), smem, (cudaStream_t)stream>>>(
         (const T*)feat, (const float*)rois, (T*)out, H, W, C, R, P);

@@ -35,19 +35,20 @@ chunk on card 0 alone with the batch cut into N shards of 2, in N processes
 joined by gloo (split_reference), so that each shard's convolutions run at
 the batch a rank sees. The chunk's updates before the parameters round
 them (SGD's first trace, read from its checkpoint) are held at the same
-limits, and so are its parameters where it is not clipped; clipped, the
-updates are small enough beside the parameters that one rounding of a
-parameter falling the other way can pass 1e-3 of a tensor's largest
-change, so its parameters' gaps print with that rounding quantum beside
-them. The script fails if any disagrees. Beside the gate, not checked: the
+limits; its parameters, element by element, within what the updates' gap
+and the step's two f32 roundings allow; and, where it is not clipped, its
+parameters within 1e-3 of their largest change. Clipped, the updates are
+small enough beside the parameters that one rounding of a parameter
+falling the other way can pass 1e-3 of a tensor's largest change, so
+there its parameters' gaps print with that rounding quantum beside them.
+The script fails if any disagrees. Beside the gate, not checked: the
 chunk against one card's on the whole batch, the split reference against
 that (the gap the split alone makes), and for the 8 tensors furthest from
 the whole batch, the three gaps and the quantum side by side. Apart, the
 all-reduce of the joint step's trainable f32 gradients alone: bytes, ms
 (CUDA events over 20 calls), and bus bandwidth (bytes x 2(N-1)/N over the
-time). It prints the card's name
-and power limit, one JSON line per run, and writes everything to
-chiprun_out/bench_multi_gpu.json.
+time). It prints the card's name and power limit, one JSON line per run,
+and writes everything to chiprun_out/bench_multi_gpu.json.
 """
 
 from __future__ import annotations
@@ -85,6 +86,7 @@ from faster_rcnn_tpu_torch.utils import checkpoint as ckpt_lib  # noqa: E402
 MAX_RANKS = 4
 CHECK_B = 2                          # images a card in the f32 check
 CHECK_CLIPS = (10.0, 0.0)            # the cached chunk's clips there (0: none)
+CHECK_LR = 1e-3                      # and its learning rate
 WARMUP, TIMED = 2, 5
 DETECT_TIMED = 3
 CACHED_CHUNK, CACHED_CHUNKS = 8, 4   # the first chunk is the warm-up
@@ -283,7 +285,7 @@ def cached_f32(cfg, state, root: str, b: int, dev, work: str, clip: float,
     ``state``, the gradient clipped at ``clip`` (0: not clipped):
     (metrics, parameters, labels, SGD's trace)."""
     ccfg = cfg.replace(train=dataclasses.replace(
-        cfg.train, phases=((1, 1e-3),), batch_size=b, clip_grad_norm=clip,
+        cfg.train, phases=((1, CHECK_LR),), batch_size=b, clip_grad_norm=clip,
         save_frequency=10 ** 6))
     fb, fm = trainer.step_freeze_spec("joint", cfg)
     labels = param_labels(FasterRCNN(cfg), cfg.model.network, fb, fm)
@@ -376,18 +378,46 @@ def _update_agreement(got: dict, want: dict, metrics_got: dict, metrics_want: di
     return {"ok": ok, "loss_rel_err": loss_err, "worst_update_ratio": worst}
 
 
+def _ulp(x: torch.Tensor) -> torch.Tensor:
+    """The f32 spacing above |x|, element by element, as f64."""
+    x = x.abs().float()
+    return (torch.nextafter(x, torch.full_like(x, float("inf"))) - x).double()
+
+
+def _rounding_agreement(got: tuple, want: tuple) -> dict:
+    """The first SGD step sets p = fl(p0 + fl(-lr * trace)) (weight decay 0,
+    the trace the clipped gradient): two roundings. So where two runs'
+    traces differ by d, their parameters differ, element by element, by at
+    most lr |d| + ulp(lr max|trace|) + ulp(max|p|), each ulp the f32
+    spacing there. Per trainable tensor the largest of |got - want| over
+    that bound: at most 1 if the parameters differ only as their traces do,
+    element by element."""
+    (_, gp, _, gt), (_, wp, _, wt) = got, want
+    worst = (0.0, "")
+    for n in wt:  # the trainable tensors
+        t = torch.maximum(gt[n].abs(), wt[n].abs())
+        bound = (CHECK_LR * (gt[n].double() - wt[n].double()).abs() + _ulp(CHECK_LR * t)
+                 + _ulp(torch.maximum(gp[n].abs(), wp[n].abs())))
+        ratio = ((gp[n].double() - wp[n].double()).abs() / bound).max().item()
+        if ratio >= worst[0]:
+            worst = (ratio, n)
+    return {"ok": worst[0] <= 1.0 and set(gt) == set(wt), "worst_rounding_ratio": worst}
+
+
 def f32_verdict(one: dict, many: dict, split: dict) -> dict:
     """The f32 check: the data-parallel joint step and detections against
     one card's on the whole batch; the data-parallel cached chunk against
     the split-batch reference, clipped and not (``cached_clip*``): its
-    updates before rounding (``gate``), and its parameters (``params``,
-    in the gate for the chunk that is not clipped); beside them, not
-    checked, against one card's chunk on the whole batch, with the 8
-    tensors furthest from that one: (name, their gap, the split
-    reference's gap to it, their gap to the split reference, their
-    rounding quantum). The clip at 10 shrinks the updates until one
-    parameter's rounding falling the other way (a quantum) can exceed 1e-3
-    of a tensor's largest change; the updates have no such floor."""
+    updates before rounding, its parameters element by element within
+    what those updates' gap and two roundings allow (``rounding``), and
+    its parameters within 1e-3 of their largest change (``params``; in the
+    gate for the chunk that is not clipped). The clip at 10 shrinks the
+    updates until one parameter's rounding falling the other way (a
+    quantum) can exceed 1e-3 of a tensor's largest change, which the
+    element-by-element bound allows for. Beside them, not checked, against
+    one card's chunk on the whole batch, with the 8 tensors furthest from
+    that one: (name, their gap, the split reference's gap to it, their gap
+    to the split reference, their rounding quantum)."""
     before = one["state"]
     out = {"train": _step_agreement(before, many["step"], one["step"]),
            "detect": _agreement(many["dets"], one["dets"])}
@@ -397,9 +427,11 @@ def f32_verdict(one: dict, many: dict, split: dict) -> dict:
                                 _ratios(before, got, ref))
         params = _step_agreement(before, got[:3], ref[:3])
         update = _update_agreement(got[3], ref[3], got[0], ref[0])
+        rounding = _rounding_agreement(got, ref)
+        ok = (update["ok"] and rounding["ok"] and not params["frozen_moved"]
+              and (clip > 0 or params["ok"]))
         out[f"cached_clip{clip:g}"] = {
-            "gate": dict(update, ok=update["ok"] and (clip > 0 or params["ok"])),
-            "params": params,
+            "gate": dict(update, ok=ok), "rounding": rounding, "params": params,
             "whole_batch": _step_agreement(before, got[:3], whole[:3]),
             "split_vs_whole_batch": _step_agreement(before, ref[:3], whole[:3]),
             "worst_vs_split": (lambda n: (vs_split[n], n, _quantum(before[n], ref[1][n])))(
@@ -498,6 +530,7 @@ def summarize(ranks: list, world: int) -> dict:
                 summary[name][k] = {
                     "ok": c[k]["gate"]["ok"], "loss_rel_err": c[k]["gate"]["loss_rel_err"],
                     "worst_update_ratio": c[k]["gate"]["worst_update_ratio"],
+                    "worst_rounding_ratio": c[k]["rounding"]["worst_rounding_ratio"],
                     "params_ok": c[k]["params"]["ok"],
                     "worst_param_ratio": c[k]["params"]["worst_param_ratio"],
                     "worst_vs_split_and_quantum": c[k]["worst_vs_split"],

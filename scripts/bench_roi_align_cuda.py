@@ -3,7 +3,7 @@
 ``roi_align_kernel``) alone on one CUDA card, at the four shapes the paths
 give it.
 
-    python3 scripts/bench_roi_align_cuda.py [--save FILE | --load FILE] [--define NAME=N ...]
+    python3 scripts/bench_roi_align_cuda.py [--save FILE | --load FILE]
 
 The inputs are captured as chip_smoke.py captures them, from one uncounted
 call of each path at kitti_config() (seeded random weights, untrained, so
@@ -30,9 +30,7 @@ and power limit, then one JSON line a case, and exits 1 if any bit differs.
 
 ``--save`` writes the captured inputs, ``--load`` times saved ones instead of
 capturing, so that two checkouts of the repo (this script copied into the
-other one's scripts/) are timed on the same inputs in one run. ``--define``
-builds the kernel with another value of one of its tunables (K1_THREADS,
-K1_ITEMS, K1_SPLIT in csrc/roi_align.cu), into a library of its own.
+other one's scripts/) are timed on the same inputs in one run.
 """
 
 from __future__ import annotations
@@ -88,16 +86,11 @@ def capture(dev) -> dict:
     return cases
 
 
-def bits_differing(a: torch.Tensor, b: torch.Tensor) -> int:
-    as_int = torch.int16 if a.element_size() == 2 else torch.int32
-    return int((a.view(as_int) != b.view(as_int)).sum())
-
-
 def measure(label: str, feat: torch.Tensor, rois: torch.Tensor, p: int) -> dict:
     run = lambda: roi_align_cuda.roi_align(feat, rois, p)  # noqa: E731
     got = run()
     want = roi_align_cuda.roi_align_plain(feat, rois, p)
-    bits = bits_differing(got, want)
+    bits = chip_smoke._bits_differing(got, want)
     err = (got.float() - want.float()).abs().max().item()
     del want
     ms = chip_smoke.time_ms(run, 20)
@@ -124,14 +117,10 @@ def main() -> int:
     group = ap.add_mutually_exclusive_group()
     group.add_argument("--save", help="write the captured inputs to this file")
     group.add_argument("--load", help="time the inputs saved in this file")
-    ap.add_argument("--define", action="append", default=[], metavar="NAME=N",
-                    help="build the kernel with this tunable's value")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("bench_roi_align_cuda: no CUDA device", file=sys.stderr)
         return 2
-    if opts.define:
-        _build.EXTRA_FLAGS["roi_align.cu"] = [f"-D{d}" for d in opts.define]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
@@ -152,7 +141,6 @@ def main() -> int:
         for label, (feat, rois, p) in cases.items():
             for f in (feat, feat.float()):
                 case = measure(label, f, rois, p)
-                case["defines"] = opts.define
                 ok &= case["bits_differing"] == 0
                 print(json.dumps(case), flush=True)
     return 0 if ok else 1

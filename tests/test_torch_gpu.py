@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import conv1_integer_mismatches, topk_adversarial
+from chip_smoke import _bits_differing, conv1_integer_mismatches, topk_adversarial
 from faster_rcnn_tpu_torch import _build, config
 from faster_rcnn_tpu_torch.models.detector import init_model
 from faster_rcnn_tpu_torch.models.resnet import Conv1
@@ -84,11 +84,6 @@ def test_conv1_bf16_kernel_keeps_a_bad_pixel_in_its_windows(cuda, bad):
     assert torch.equal(got[fin].view(torch.int16), want[fin].view(torch.int16))
 
 
-def _bits(a, b) -> int:
-    as_int = torch.int16 if a.element_size() == 2 else torch.int32
-    return int((a.view(as_int) != b.view(as_int)).sum())
-
-
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("c", [64, 512])
 @pytest.mark.parametrize("p", [7, 5, 9])
@@ -108,10 +103,10 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, c, p):
     rois = torch.tensor(rois_np, device=cuda)
     got = roi_align_cuda.roi_align(feat, rois, p)
     assert got.shape == (b, r, p, p, c) and got.dtype == dtype
-    assert _bits(got, roi_align_cuda.roi_align_plain(feat, rois, p)) == 0
+    assert _bits_differing(got, roi_align_cuda.roi_align_plain(feat, rois, p)) == 0
     assert torch.equal(got[0, 0], feat[0, 3, 4].expand(p, p, c))
     model, _ = kernel_model(feat.float().cpu().numpy(), rois_np, p, 16 // feat.element_size())
-    assert _bits(got.cpu(), torch.from_numpy(model).to(dtype)) == 0
+    assert _bits_differing(got.cpu(), torch.from_numpy(model).to(dtype)) == 0
 
 
 def nms_case(kind: str, b: int, n: int, n_valid: int, seed: int = 2):
@@ -471,8 +466,8 @@ def test_roi_align_at_the_vgg_step2_input(cuda):
     t_rois = torch.tensor(rois, device=cuda)
     feat = torch.tensor(rng.standard_normal((b, h, w, c)), dtype=torch.bfloat16, device=cuda)
     for f in (feat, feat.float()):
-        assert _bits(roi_align_cuda.roi_align(f, t_rois, 7),
-                     roi_align_cuda.roi_align_plain(f, t_rois, 7)) == 0
+        assert _bits_differing(roi_align_cuda.roi_align(f, t_rois, 7),
+                               roi_align_cuda.roi_align_plain(f, t_rois, 7)) == 0
     g = torch.tensor(rng.standard_normal((b, r, 7, 7, c)), dtype=torch.bfloat16, device=cuda)
     got = roi_align_cuda.roi_align_backward(g, t_rois, (b, h, w, c), 7)
     again = roi_align_cuda.roi_align_backward(g, t_rois, (b, h, w, c), 7)

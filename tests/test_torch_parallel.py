@@ -350,55 +350,54 @@ def test_tp_det_step_equals_the_replicated_step(setting):
 # ---------------------------------------------------------------------------
 
 
+def dp_cached_ratios(s, key: str, workdir: str) -> dict:
+    """Rank 0's checkpoint of a data-parallel chunk against the one-process
+    chunk ``key``, per moved tensor (worst_ratios); the 8 worst printed."""
+    local = s["local"][key]
+    before = init_model(s["ccfg"].train.seed, s["ccfg"], "cpu").state_dict()
+    moved = {n: v for n, v in local.params.items()
+             if v.is_floating_point() and not torch.equal(v, before[n])}
+    assert any(n.startswith("det_head") for n in moved)
+    ck = ckpt_lib.restore(str(s["tmp"] / workdir / "stepjoint"))
+    assert ck["count"] == STEPS
+    ratios = worst_ratios(ck["model"], moved, before)
+    top = sorted(ratios, key=ratios.get, reverse=True)[:8]
+    print(f"{workdir}: worst ratios " + ", ".join(f"{n} {ratios[n]:.3g}" for n in top))
+    return ratios
+
+
 def test_dp_cached_chunk_equals_the_local_chunk(setting):
     """train_cached's joint step, one chunk of 2 steps of 4 distinct
     images, in two processes (each its 2 rows of each global batch) and in
-    one, on the same plan and draws: the final metrics within 1e-5 relative
-    (1e-6 absolute), the parameters of rank 0's checkpoint within 1e-3 of
-    their largest change (2e-2 in the RPN head)."""
+    one, on the same plan and draws, with the clip at 10 binding (the
+    update is not the unclipped one): the final metrics within 1e-5
+    relative (1e-6 absolute), the parameters of rank 0's checkpoint within
+    1e-3 of their largest change (2e-2 in the RPN head). A fault of the rows
+    a rank takes, its draws, the clip or the gradients' average moves
+    tensors by far more: every rank taking rank 0's rows moved the worst by
+    0.46, each rank drawing its own samples by 0.13. 2 processes of 2
+    images against one of 4 move them by f32 rounding, amplified where a
+    ReLU flips, and by the bf16 RPN conv's rounding: 5.5e-4 at most. The
+    worst tensors are printed."""
     s = setting
-    ccfg, local = s["ccfg"], s["local"]["cached"]
+    local, free = s["local"]["cached"], s["local"]["cached_no_clip"].params
     got = s["ranks"][0]["dp_cached"]["final_metrics"]
     assert got == s["ranks"][1]["dp_cached"]["final_metrics"]
     assert set(got) == set(local.final_metrics)
     for k, v in local.final_metrics.items():
         assert np.isclose(got[k], v, rtol=1e-5, atol=1e-6), (k, got, local.final_metrics)
-    ck = ckpt_lib.restore(str(s["tmp"] / "cached_dp" / "stepjoint"))
-    assert ck["count"] == STEPS
-    before = init_model(ccfg.train.seed, ccfg, "cpu").state_dict()
-    moved = {n: v for n, v in local.params.items()
-             if v.is_floating_point() and not torch.equal(v, before[n])}
-    assert any(n.startswith("det_head") for n in moved)
-    check_ratios(worst_ratios(ck["model"], moved, before), DP_HELD)
+    assert any(not torch.allclose(v, free[n], rtol=1e-3, atol=0) for n, v in local.params.items()
+               if v.is_floating_point())
+    check_ratios(dp_cached_ratios(s, "cached", "cached_dp"), DP_HELD)
 
 
-@pytest.mark.parametrize("clip", ["clip", "no_clip"])
-def test_dp_cached_chunk_gap_is_f32_noise(setting, clip):
-    """The data-parallel chunk's gap to the one-process chunk on the same
-    plan and draws, tensor by tensor, with the clip at 10 (binding: the
-    gradient norm is above it) and without it: every tensor within DP_HELD
-    of its largest change. A fault of the rows a rank takes, its draws, the
-    clip or the gradients' average moves tensors by far more: every rank
-    taking rank 0's rows moved the worst by 0.46 (clipped) and 3.0 (not),
-    each rank drawing its own samples by 0.13 and 0.68. 2 processes of 2
-    images against one of 4 move them by f32 rounding, amplified where a
-    ReLU flips, and by the bf16 RPN conv's rounding: 5.5e-4 and 2.9e-3 at
-    most. The worst tensors are printed."""
-    s = setting
-    key, workdir = (("cached", "cached_dp") if clip == "clip"
-                    else ("cached_no_clip", "cached_no_clip_dp"))
-    local = s["local"][key]
-    before = init_model(s["ccfg"].train.seed, s["ccfg"], "cpu").state_dict()
-    moved = {n: v for n, v in local.params.items()
-             if v.is_floating_point() and not torch.equal(v, before[n])}
-    if clip == "clip":  # the clip binds: the update is not the unclipped one
-        free = s["local"]["cached_no_clip"].params
-        assert any(not torch.allclose(v, free[n], rtol=1e-3, atol=0) for n, v in moved.items())
-    ck = ckpt_lib.restore(str(s["tmp"] / workdir / "stepjoint"))
-    ratios = worst_ratios(ck["model"], moved, before)
-    top = sorted(ratios, key=ratios.get, reverse=True)[:8]
-    print(f"dp_cached {clip}: worst ratios " + ", ".join(f"{n} {ratios[n]:.3g}" for n in top))
-    check_ratios(ratios, DP_HELD)
+def test_dp_cached_chunk_gap_is_f32_noise(setting):
+    """The same chunk without the clip, as the joint step's check runs:
+    every tensor within DP_HELD of its largest change from the one-process
+    chunk's. Every rank taking rank 0's rows moved the worst by 3.0, each
+    rank drawing its own samples by 0.68; f32 and bf16 rounding moves it by
+    2.9e-3 at most (the RPN head). The worst tensors are printed."""
+    check_ratios(dp_cached_ratios(setting, "cached_no_clip", "cached_no_clip_dp"), DP_HELD)
 
 
 # ---------------------------------------------------------------------------
