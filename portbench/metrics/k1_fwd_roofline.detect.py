@@ -1,0 +1,10 @@
+"""The K1 RoI-align forward's least time over its device time in the traced
+detect calls, in %."""
+
+from portbench import readers
+
+COMBINE = "mean"
+
+
+def read(t):
+    return readers.roofline_pct(t, "k1_fwd")
