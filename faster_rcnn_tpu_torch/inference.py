@@ -36,6 +36,7 @@ from faster_rcnn_tpu_torch.ops.roi_align_cuda import roi_align
 from faster_rcnn_tpu_torch.ops.targets import BBREG_MULTIPLIERS
 from faster_rcnn_tpu_torch.parallel import mesh as mesh_lib
 from faster_rcnn_tpu_torch.train import pipeline
+from faster_rcnn_tpu_torch.utils import profiling
 
 _CLASS_OFFSET = 16384.0  # larger than any image dim; small enough for fp32 IoU
 
@@ -86,6 +87,13 @@ def make_detect_fn(cfg: FasterRcnnConfig, model: FasterRCNN, device=None, mesh=N
     preprocessed; ``img_hw`` is (B, 2) int, the actual (h, w) of each image
     on the canvas. Both may be numpy arrays or tensors.
 
+    A call is the span ``frcnn.detect`` (utils/profiling) of five stages:
+    ``ingest`` (the upload of the frames and ``img_hw``, flip, float, mean
+    subtraction), ``backbone`` (to stride 16), ``rpn_proposals`` (RPN head,
+    sigmoid, decode, top-k, NMS), ``roi_align_head`` (RoI align, stage 5 or
+    fc6/fc7, softmax) and ``decode``. ``detect(images, img_hw, mark)``
+    calls ``mark(stage)`` as each stage is enqueued (for timing).
+
     ``mesh`` (a parallel/mesh.Mesh): every process passes the whole batch,
     detects its rows of it (B must be a multiple of the mesh's data size)
     and returns the whole batch's detections; rank 0's weights are copied
@@ -99,16 +107,23 @@ def make_detect_fn(cfg: FasterRcnnConfig, model: FasterRCNN, device=None, mesh=N
     posv = pipeline._position_validity(cfg, device)
 
     @torch.inference_mode()
-    def detect(images, img_hw) -> Detections:
-        images = pipeline.ingest_images(torch.as_tensor(images, device=device))
-        img_hw = torch.as_tensor(img_hw, device=device).long()
-        feat, pboxes, _, pvalid = pipeline.rpn_forward_proposals(
-            cfg, model, images, img_hw, cfg.rpn.infer_pre_nms, cfg.rpn.infer_post_nms,
-            consts=consts, posv=posv)
-        pooled = roi_align(feat.contiguous(), pboxes.contiguous(), cfg.det.pool_size)
-        cls_logits, reg_out = model.det_head(pooled)
-        cls_prob = torch.softmax(cls_logits, dim=-1)
-        return Detections(*_decode_one_image(cfg, pboxes, pvalid, cls_prob, reg_out))
+    def detect(images, img_hw, mark=None) -> Detections:
+        with profiling.scope("frcnn.detect", device=device):
+            with profiling.scope("ingest", mark):
+                images = pipeline.ingest_images(torch.as_tensor(images, device=device))
+                img_hw = torch.as_tensor(img_hw, device=device).long()
+            with profiling.scope("backbone", mark):
+                feat = model.backbone(images)
+            with profiling.scope("rpn_proposals", mark):
+                pboxes, _, pvalid = pipeline.rpn_proposals(
+                    cfg, model, feat, img_hw, cfg.rpn.infer_pre_nms, cfg.rpn.infer_post_nms,
+                    consts, posv)
+            with profiling.scope("roi_align_head", mark):
+                pooled = roi_align(feat.contiguous(), pboxes.contiguous(), cfg.det.pool_size)
+                cls_logits, reg_out = model.det_head(pooled)
+                cls_prob = torch.softmax(cls_logits, dim=-1)
+            with profiling.scope("decode", mark):
+                return Detections(*_decode_one_image(cfg, pboxes, pvalid, cls_prob, reg_out))
 
     if mesh is None:
         return detect

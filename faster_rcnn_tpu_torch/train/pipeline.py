@@ -45,6 +45,7 @@ from faster_rcnn_tpu_torch.ops import targets as tgt_ops
 from faster_rcnn_tpu_torch.ops.roi_align_cuda import roi_align
 from faster_rcnn_tpu_torch.ops.sampling import sample_det_rois
 from faster_rcnn_tpu_torch.parallel.freeze import FreezeAwareOptimizer, frozen_prefix_stage
+from faster_rcnn_tpu_torch.utils import profiling
 
 
 def ingest_images(images: torch.Tensor) -> torch.Tensor:
@@ -86,6 +87,13 @@ def rpn_forward_proposals(cfg: FasterRcnnConfig, model: FasterRCNN, images: torc
     consts = consts if consts is not None else build_constants(cfg, device)
     posv = posv if posv is not None else _position_validity(cfg, device)
     feat = model.backbone(images)
+    return (feat,) + rpn_proposals(cfg, model, feat, img_hw, pre_nms, post_nms, consts, posv)
+
+
+def rpn_proposals(cfg: FasterRcnnConfig, model: FasterRCNN, feat: torch.Tensor,
+                  img_hw: torch.Tensor, pre_nms: int, post_nms: int, consts: Constants, posv):
+    """The RPN head on the backbone's map ``feat`` and the proposals from
+    it: (boxes (B, K, 4), scores (B, K), valid (B, K))."""
     cls_logits, bbreg = model.rpn(feat)
     probs = torch.sigmoid(cls_logits)
     rows = img_hw[:, 0] // cfg.model.stride
@@ -94,7 +102,7 @@ def rpn_forward_proposals(cfg: FasterRcnnConfig, model: FasterRCNN, images: torc
         probs, bbreg, consts.anchors_conv, posv(rows, cols), rows, cols,
         pre_nms=pre_nms, post_nms=post_nms, iou_thresh=cfg.rpn.nms_iou,
         nms_tile=cfg.rpn.nms_tile)
-    return feat, props.boxes, props.scores, props.valid
+    return props.boxes, props.scores, props.valid
 
 
 # ---------------------------------------------------------------------------
@@ -187,11 +195,15 @@ def _draws_on(cfg: FasterRcnnConfig, draws, b: int, device) -> Draws:
     return Draws(*(t.to(device) for t in draws))
 
 
-def _backbone(model: FasterRCNN, images: torch.Tensor, sg_stage: int, mark) -> torch.Tensor:
-    """The model's backbone, stages <= ``sg_stage`` without autograd."""
+def _frozen_stages(model: FasterRCNN, images: torch.Tensor, sg_stage: int) -> torch.Tensor:
+    """The backbone's stages <= ``sg_stage``, without autograd."""
     backbone = model.backbone
-    x = backbone.run_stages(images.to(backbone.dtype), 1, sg_stage, sg_stage)
-    mark("frozen_prefix")
+    return backbone.run_stages(images.to(backbone.dtype), 1, sg_stage, sg_stage)
+
+
+def _trained_stages(model: FasterRCNN, x: torch.Tensor, sg_stage: int) -> torch.Tensor:
+    """The backbone's stages above ``sg_stage``, on the frozen prefix's map."""
+    backbone = model.backbone
     return backbone.run_stages(x, sg_stage + 1, backbone.last_stage, sg_stage)
 
 
@@ -209,15 +221,16 @@ def _det_losses(cfg: FasterRcnnConfig, model: FasterRCNN, feat, rois, cls_t, reg
 
 def _update(optimizer: FreezeAwareOptimizer, metrics: dict, mark, num_valid=None) -> dict:
     """Backward of the sum of the losses in ``metrics`` and the optimizer's
-    step; returns the detached losses, ``loss``, their sum, and
-    ``num_valid_images`` where ``num_valid`` is given, reduced over the
-    optimizer's mesh, if it has one."""
-    loss = sum(metrics.values())
-    optimizer.zero_grad()
-    loss.backward()
-    mark("backward")
-    optimizer.step()
-    mark("optimizer")
+    step (the stages ``backward`` and ``optimizer``); returns the detached
+    losses, ``loss``, their sum, and ``num_valid_images`` where
+    ``num_valid`` is given, reduced over the optimizer's mesh, if it has
+    one."""
+    with profiling.scope("backward", mark):
+        loss = sum(metrics.values())
+        optimizer.zero_grad()
+        loss.backward()
+    with profiling.scope("optimizer", mark):
+        optimizer.step()
     out = dict({k: v.detach() for k, v in metrics.items()}, loss=loss.detach())
     if num_valid is not None:
         out["num_valid_images"] = num_valid
@@ -238,10 +251,6 @@ def reduce_metrics(metrics: dict, mesh) -> dict:
             for k, v in zip(names, flat)}
 
 
-def _no_mark(_: str) -> None:
-    pass
-
-
 def make_rpn_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
                         optimizer: FreezeAwareOptimizer, freeze_blocks=None,
                         freeze_modules=(), device=None):
@@ -252,8 +261,10 @@ def make_rpn_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
     Returns ``step(batch, draws, mark=None) -> metrics`` (``rpn_cls``,
     ``rpn_reg``, ``loss``); ``draws`` and ``mark`` as for
     :func:`make_joint_train_step`, of which only the RPN sampler's draws
-    are read. ``freeze_blocks``/``freeze_modules`` are the spec the
-    optimizer was built with (``train.trainer.step_freeze_spec``); the
+    are read. A step is the span ``frcnn.train.rpn`` of the stages
+    ``frozen_prefix``, ``backbone_rpn``, ``rpn_targets_losses``,
+    ``backward`` and ``optimizer``. ``freeze_blocks``/``freeze_modules``
+    are the spec the optimizer was built with (``train.trainer.step_freeze_spec``); the
     backbone runs its frozen prefix without autograd, all of it in step 3.
     Runs on CUDA unless ``device="cpu"``; data parallel when the optimizer
     has a mesh (the module docstring).
@@ -264,16 +275,17 @@ def make_rpn_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
     sg_stage = _frozen_prefix(cfg, freeze_blocks, freeze_modules)
 
     def step(batch, draws, mark: Callable[[str], None] | None = None):
-        mark = mark or _no_mark
-        images, gt_boxes, _, gt_valid, img_hw = _batch_on(batch, device)
-        draws = _draws_on(cfg, draws, images.shape[0], device)
-        feat = _backbone(model, images, sg_stage, mark)
-        cls_logits, bbreg = model.rpn(feat)
-        mark("backbone_rpn")
-        l_cls, l_reg = rpn_losses(cfg, consts, draws, cls_logits, bbreg, gt_boxes, gt_valid,
-                                  img_hw)
-        mark("rpn_targets_losses")
-        return _update(optimizer, {"rpn_cls": l_cls.mean(), "rpn_reg": l_reg.mean()}, mark)
+        with profiling.scope("frcnn.train.rpn", device=device):
+            with profiling.scope("frozen_prefix", mark):
+                images, gt_boxes, _, gt_valid, img_hw = _batch_on(batch, device)
+                draws = _draws_on(cfg, draws, images.shape[0], device)
+                x = _frozen_stages(model, images, sg_stage)
+            with profiling.scope("backbone_rpn", mark):
+                cls_logits, bbreg = model.rpn(_trained_stages(model, x, sg_stage))
+            with profiling.scope("rpn_targets_losses", mark):
+                l_cls, l_reg = rpn_losses(cfg, consts, draws, cls_logits, bbreg, gt_boxes,
+                                          gt_valid, img_hw)
+            return _update(optimizer, {"rpn_cls": l_cls.mean(), "rpn_reg": l_reg.mean()}, mark)
 
     return step
 
@@ -296,7 +308,10 @@ def make_det_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
     Returns ``step(batch, draws, mark=None) -> metrics`` (``det_cls``,
     ``det_reg``, ``num_valid_images``, ``loss``); ``draws`` and ``mark`` as
     for :func:`make_joint_train_step`, of which only the ROI sampler's draws
-    are read. Runs on CUDA unless ``device="cpu"``; data parallel when the
+    are read. A step is the span ``frcnn.train.det`` of the stages
+    ``rpn_proposals``, ``det_targets``, ``frozen_prefix`` and ``backbone``
+    (step 2 only), ``roi_align_head``, ``backward`` and ``optimizer``.
+    Runs on CUDA unless ``device="cpu"``; data parallel when the
     optimizer has a mesh (the module docstring), and tensor parallel too
     with VGG16's fc head split over its model rows
     (parallel/sharding.shard_vgg_head).
@@ -309,23 +324,25 @@ def make_det_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
     sg_stage = _frozen_prefix(cfg, freeze_blocks, freeze_modules)
 
     def step(batch, draws, mark: Callable[[str], None] | None = None):
-        mark = mark or _no_mark
-        images, gt_boxes, gt_class, gt_valid, img_hw = _batch_on(batch, device)
-        draws = _draws_on(cfg, draws, images.shape[0], device)
-        with torch.no_grad():
-            feat_rpn, pboxes, _, pvalid = rpn_forward_proposals(
-                cfg, rpn_model, images, img_hw, cfg.rpn.train_pre_nms, cfg.rpn.train_post_nms,
-                consts=consts, posv=posv)
-        mark("rpn_proposals")
-        rois, cls_t, reg_t, pos_m, ok = det_samples(cfg, draws, pboxes, pvalid, gt_boxes,
-                                                    gt_class, gt_valid)
-        mark("det_targets")
-        feat = feat_rpn if heads_only else _backbone(model, images, sg_stage, mark)
-        if not heads_only:
-            mark("backbone")
-        l_cls, l_reg = _det_losses(cfg, model, feat, rois, cls_t, reg_t, pos_m, ok)
-        mark("roi_align_head")
-        return _update(optimizer, {"det_cls": l_cls, "det_reg": l_reg}, mark, ok.sum())
+        with profiling.scope("frcnn.train.det", device=device):
+            with profiling.scope("rpn_proposals", mark):
+                images, gt_boxes, gt_class, gt_valid, img_hw = _batch_on(batch, device)
+                draws = _draws_on(cfg, draws, images.shape[0], device)
+                with torch.no_grad():
+                    feat, pboxes, _, pvalid = rpn_forward_proposals(
+                        cfg, rpn_model, images, img_hw, cfg.rpn.train_pre_nms,
+                        cfg.rpn.train_post_nms, consts=consts, posv=posv)
+            with profiling.scope("det_targets", mark):
+                rois, cls_t, reg_t, pos_m, ok = det_samples(cfg, draws, pboxes, pvalid,
+                                                            gt_boxes, gt_class, gt_valid)
+            if not heads_only:
+                with profiling.scope("frozen_prefix", mark):
+                    x = _frozen_stages(model, images, sg_stage)
+                with profiling.scope("backbone", mark):
+                    feat = _trained_stages(model, x, sg_stage)
+            with profiling.scope("roi_align_head", mark):
+                l_cls, l_reg = _det_losses(cfg, model, feat, rois, cls_t, reg_t, pos_m, ok)
+            return _update(optimizer, {"det_cls": l_cls, "det_reg": l_reg}, mark, ok.sum())
 
     return step
 
@@ -339,10 +356,15 @@ def make_joint_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
     feature map, the detector losses; all four are minimised together.
 
     Returns ``step(batch, draws, mark=None) -> metrics``. ``draws`` is a
-    :class:`Draws` or a ``torch.Generator`` to draw one from. ``mark``, if
-    given, is called with a stage's name as each stage is enqueued (for
-    timing). The metrics are 0-dim tensors: ``rpn_cls``, ``rpn_reg``,
-    ``det_cls``, ``det_reg``, ``num_valid_images`` and ``loss``.
+    :class:`Draws` or a ``torch.Generator`` to draw one from. A step is the
+    span ``frcnn.train.joint`` (utils/profiling) of the stages
+    ``frozen_prefix`` (the batch's ingest and the draws too),
+    ``backbone_rpn``, ``rpn_targets_losses``, ``proposals``,
+    ``det_targets``, ``roi_align_head``, ``backward`` and ``optimizer``;
+    ``mark``, if given, is called with a stage's name as each stage is
+    enqueued (for timing). The metrics are 0-dim tensors: ``rpn_cls``,
+    ``rpn_reg``, ``det_cls``, ``det_reg``, ``num_valid_images`` and
+    ``loss``.
 
     ``freeze_blocks``/``freeze_modules`` are the spec the optimizer was
     built with (default: ``cfg.model.freeze_blocks``, nothing
@@ -358,30 +380,30 @@ def make_joint_train_step(cfg: FasterRcnnConfig, model: FasterRCNN,
     stride = cfg.model.stride
 
     def step(batch, draws, mark: Callable[[str], None] | None = None):
-        mark = mark or _no_mark
-        images, gt_boxes, gt_class, gt_valid, img_hw = _batch_on(batch, device)
-        draws = _draws_on(cfg, draws, images.shape[0], device)
-        feat = _backbone(model, images, sg_stage, mark)
-        cls_logits, bbreg = model.rpn(feat)
-        mark("backbone_rpn")
-
-        l_rcls, l_rreg = rpn_losses(cfg, consts, draws, cls_logits, bbreg, gt_boxes, gt_valid,
-                                    img_hw)
-        mark("rpn_targets_losses")
-        with torch.no_grad():
-            rows, cols = img_hw[:, 0] // stride, img_hw[:, 1] // stride
-            props = prop_ops.generate_proposals(
-                torch.sigmoid(cls_logits), bbreg, consts.anchors_conv, posv(rows, cols), rows,
-                cols, pre_nms=cfg.rpn.train_pre_nms, post_nms=cfg.rpn.train_post_nms,
-                iou_thresh=cfg.rpn.nms_iou, nms_tile=cfg.rpn.nms_tile)
-        mark("proposals")
-        rois, cls_t, reg_t, pos_m, ok = det_samples(cfg, draws, props.boxes, props.valid,
-                                                    gt_boxes, gt_class, gt_valid)
-        mark("det_targets")
-        l_dcls, l_dreg = _det_losses(cfg, model, feat, rois, cls_t, reg_t, pos_m, ok)
-        mark("roi_align_head")
-        metrics = {"rpn_cls": l_rcls.mean(), "rpn_reg": l_rreg.mean(),
-                   "det_cls": l_dcls, "det_reg": l_dreg}
-        return _update(optimizer, metrics, mark, ok.sum())
+        with profiling.scope("frcnn.train.joint", device=device):
+            with profiling.scope("frozen_prefix", mark):
+                images, gt_boxes, gt_class, gt_valid, img_hw = _batch_on(batch, device)
+                draws = _draws_on(cfg, draws, images.shape[0], device)
+                x = _frozen_stages(model, images, sg_stage)
+            with profiling.scope("backbone_rpn", mark):
+                feat = _trained_stages(model, x, sg_stage)
+                cls_logits, bbreg = model.rpn(feat)
+            with profiling.scope("rpn_targets_losses", mark):
+                l_rcls, l_rreg = rpn_losses(cfg, consts, draws, cls_logits, bbreg, gt_boxes,
+                                            gt_valid, img_hw)
+            with profiling.scope("proposals", mark), torch.no_grad():
+                rows, cols = img_hw[:, 0] // stride, img_hw[:, 1] // stride
+                props = prop_ops.generate_proposals(
+                    torch.sigmoid(cls_logits), bbreg, consts.anchors_conv, posv(rows, cols),
+                    rows, cols, pre_nms=cfg.rpn.train_pre_nms, post_nms=cfg.rpn.train_post_nms,
+                    iou_thresh=cfg.rpn.nms_iou, nms_tile=cfg.rpn.nms_tile)
+            with profiling.scope("det_targets", mark):
+                rois, cls_t, reg_t, pos_m, ok = det_samples(cfg, draws, props.boxes, props.valid,
+                                                            gt_boxes, gt_class, gt_valid)
+            with profiling.scope("roi_align_head", mark):
+                l_dcls, l_dreg = _det_losses(cfg, model, feat, rois, cls_t, reg_t, pos_m, ok)
+            metrics = {"rpn_cls": l_rcls.mean(), "rpn_reg": l_rreg.mean(),
+                       "det_cls": l_dcls, "det_reg": l_dreg}
+            return _update(optimizer, metrics, mark, ok.sum())
 
     return step

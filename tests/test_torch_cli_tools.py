@@ -12,6 +12,7 @@ untouched.
 import argparse
 import dataclasses
 import io
+import json
 import os
 import re
 import shutil
@@ -203,83 +204,86 @@ def test_cli_flags_are_the_jax_clis_plus_device(module, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-def _tree(pkg):
-    """The tree printed by nested scopes and a decorated function, with the
-    times taken out."""
+def _tree(pkg, **block):
+    """Nested scopes and decorated functions; ``block`` as the JAX package's
+    scopes take it."""
     @pkg.profile
     def leaf():
         return 3
 
-    @pkg.profile(block=True)
+    @pkg.profile(**block)
     def blocked():
         return 4
 
-    def run():
-        with pkg.scope("outer"):
-            with pkg.scope("first"):
-                assert leaf() == 3
-            with pkg.scope("second", block=True):
-                with pkg.scope("inner"):
-                    pass
-            assert blocked() == 4
-        with pkg.scope("alone"):
-            pass
+    with pkg.scope("outer"):
+        with pkg.scope("first"):
+            assert leaf() == 3
+        with pkg.scope("second", **block):
+            with pkg.scope("inner"):
+                pass
+        assert blocked() == 4
+    with pkg.scope("alone"):
+        pass
 
-    _, out = _stdout(run)
-    return re.sub(r"\d+\.\d\d ms", "T ms", out)
+
+def _untimed(text):
+    return re.sub(r"\d+\.\d\d ms", "T ms", text)
 
 
 def test_profiling_tree_is_jax_s():
-    got = _tree(tprofiling)
-    assert got == _tree(jprofiling)
+    """The port's spans, recorded and formatted, are the tree the JAX
+    package prints as its outermost scopes exit."""
+    _, want = _stdout(lambda: _tree(jprofiling, block=True))
+    with tprofiling.recording() as rec:
+        _, printed = _stdout(_tree, tprofiling)
+    assert printed == ""
+    got = _untimed(tprofiling.format_spans(rec.spans))
+    assert got == _untimed(want)
     assert got.splitlines() == [
         "outer: T ms", "  first: T ms", "    _tree.<locals>.leaf: T ms", "  second: T ms",
         "    inner: T ms", "  _tree.<locals>.blocked: T ms", "alone: T ms"]
-    assert not torch.cuda.is_initialized()  # block=True on the CPU waits for nothing
+    assert not torch.cuda.is_initialized()
 
 
 def test_profiling_scopes_are_per_thread():
-    """A scope opened in another thread while one is open here prints its
-    own tree when it exits."""
-    lines = []
-
+    """A scope opened in another thread while one is open here is the
+    outermost span of its own call, formatted as its own tree."""
     def other():
         with tprofiling.scope("other"):
             pass
 
-    buf = io.StringIO()
-    with redirect_stdout(buf):
+    with tprofiling.recording() as rec:
         with tprofiling.scope("main"):
             t = threading.Thread(target=other)
             t.start()
             t.join()
-            lines.append(buf.getvalue())
-    assert re.fullmatch(r"other: \d+\.\d\d ms\n", lines[0])
-    assert re.fullmatch(r"other: \d+\.\d\d ms\nmain: \d+\.\d\d ms\n", buf.getvalue())
-
-
-def test_step_timer_is_jax_s(monkeypatch):
-    now = [0.0, 0.5, 1.5, 1.75, 2.75, 3.0]
-    timers = {}
-    for pkg in (tprofiling, jprofiling):
-        ticks = iter(now)
-        monkeypatch.setattr(pkg.time, "perf_counter", lambda: next(ticks))
-        timer = pkg.StepTimer(window=3)
-        assert timer.img_per_sec(4) == 0.0 and timer.ms_per_step == 0.0
-        for _ in now:
-            timer.tick()
-        timers[pkg] = (timer.ms_per_step, timer.img_per_sec(4))
-    assert timers[tprofiling] == timers[jprofiling]
-    assert timers[tprofiling] == (500.0, 8.0)  # the last 3 of 5 intervals
+    main, oth = rec.spans
+    assert (main.name, oth.name) == ("main", "other")
+    assert main.parent is None and oth.parent is None and oth.call != main.call
+    assert re.fullmatch(r"main: \d+\.\d\d ms\nother: \d+\.\d\d ms\n",
+                        tprofiling.format_spans(rec.spans))
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
+    """Each trace is a Chrome trace with the program's spans as ranges, and
+    beside it the recorded calls (utils/profiling.runtime_calls)."""
     logdir = str(tmp_path / "trace")
     for _ in range(2):
         with tprofiling.device_trace(logdir) as prof:
-            torch.ones(8, 8).matmul(torch.ones(8, 8))
+            with tprofiling.scope("frcnn.call"):
+                with tprofiling.scope("stage"):
+                    torch.ones(8, 8).matmul(torch.ones(8, 8))
         assert any("mm" in e.name for e in prof.events())
     files = sorted(os.listdir(logdir))
-    assert len(files) == 2 and all(f.endswith(".json") for f in files)
-    with open(os.path.join(logdir, files[0])) as f:
-        assert '"traceEvents"' in f.read()
+    traces = [f for f in files if f.startswith("trace_")]
+    spans = [f for f in files if f.startswith("spans_")]
+    assert len(traces) == 2 and len(spans) == 2 and all(f.endswith(".json") for f in files)
+    with open(os.path.join(logdir, traces[0])) as f:
+        text = f.read()
+    assert '"traceEvents"' in text and '"frcnn.call"' in text and '"stage"' in text
+    with open(os.path.join(logdir, spans[0])) as f:
+        got = json.load(f)
+    (call,) = got["calls"]
+    assert call["name"] == "frcnn.call" and [s["name"] for s in call["spans"]] == [
+        "frcnn.call", "stage"]
+    assert call["syncs"] == 0 and got["outside_ms"] == 0
