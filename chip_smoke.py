@@ -109,6 +109,7 @@ from faster_rcnn_tpu_torch.config import kitti_config
 from faster_rcnn_tpu_torch.models import resnet
 from faster_rcnn_tpu_torch.models.detector import FasterRCNN, init_model
 from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda, sort, sort_cuda
+from faster_rcnn_tpu_torch.ops import frozen_epilogue_cuda
 from faster_rcnn_tpu_torch.ops import proposals as prop_ops
 from faster_rcnn_tpu_torch.ops.roi_align_taps import roi_axes, row_hits, tap_counts
 from faster_rcnn_tpu_torch.parallel import mesh as mesh_lib
@@ -141,12 +142,16 @@ _DETECT = (("proposal NMS", "final NMS"), ("proposals",))
 _RPN_SAMPLER = ("RPN sampler pos", "RPN sampler neg")
 # each path: (launches of each kernel in one call or step, labels of its NMS
 # calls, labels of its top-k calls); "detect" and "train" are ResNet-50's
+# (frozen_epilogue: every ResNet branch where no autograd runs: ResNet-50's
+# stem, 42 in stages 2-4 and 10 in stage 5; ResNet-101's stages 2-4 hold 94)
 PATHS = {
-    "detect": ({"conv1": 1, "roi_align": 1, "nms": 2, "topk": 1},) + _DETECT,
-    "train": ({"conv1": 1, "roi_align": 1, "roi_align_bwd": 1, "nms": 1, "topk": 3},
-              ("proposal NMS",), _RPN_SAMPLER + ("proposals",)),
+    "detect": ({"conv1": 1, "roi_align": 1, "nms": 2, "topk": 1, "frozen_epilogue": 53},)
+    + _DETECT,
+    "train": ({"conv1": 1, "roi_align": 1, "roi_align_bwd": 1, "nms": 1, "topk": 3,
+               "frozen_epilogue": 24}, ("proposal NMS",), _RPN_SAMPLER + ("proposals",)),
     "vgg16_detect": ({"roi_align": 1, "nms": 2, "topk": 1},) + _DETECT,
-    "resnet101_detect": ({"conv1": 1, "roi_align": 1, "nms": 2, "topk": 1},) + _DETECT,
+    "resnet101_detect": ({"conv1": 1, "roi_align": 1, "nms": 2, "topk": 1,
+                          "frozen_epilogue": 104},) + _DETECT,
     "step1": ({"topk": 2}, (), _RPN_SAMPLER),
     "step2": ({"roi_align": 1, "roi_align_bwd": 1, "nms": 1, "topk": 1}, ("proposal NMS",),
               ("proposals",)),
@@ -193,6 +198,13 @@ SOURCES = {"conv1": ("conv1.cu", "faster_rcnn_tpu/ops/conv1_pallas.py:262"),
            "nms": ("nms.cu", "faster_rcnn_tpu/ops/nms_pallas.py:153"),
            "topk": ("topk.cu", "faster_rcnn_tpu/ops/sort_pallas.py:115")}
 
+# the frozen epilogue, checked on seeded maps at the ResNet-50 paths' shapes:
+# (label, shape, conv bias, channel scale, shortcut, ReLU)
+EPILOGUE_CASES = (("stem", (16, 304, 752, 64), True, False, False, True),
+                  ("stage2", (16, 152, 376, 256), True, False, False, False),
+                  ("stage5", (4800, 7, 7, 2048), True, False, True, True))
+EPILOGUE_OPS = 6            # f32 operations of an element's bias, norm, add and ReLU
+
 KITTI_HW = (453, 1500)      # a 375x1242 KITTI frame under the 600/1500 resize
 KITTI_RATIO = 453 / 375
 
@@ -237,6 +249,8 @@ def plain_versions():
     never does this). Autograd through the plain forwards is the plain
     backwards."""
     with mock.patch.object(resnet, "conv1_kernel", conv1_cuda.conv1_plain), \
+            mock.patch.object(resnet, "frozen_epilogue",
+                              frozen_epilogue_cuda.frozen_epilogue_plain), \
             mock.patch.object(inference, "roi_align", roi_align_cuda.roi_align_plain), \
             mock.patch.object(pipeline, "roi_align", roi_align_cuda.roi_align_plain), \
             mock.patch.object(nms_cuda, "nms_keep_mask", nms.nms_sorted_mask_blocked), \
@@ -436,6 +450,76 @@ def check_roi_align(label, feat, rois, p) -> dict:
         f"bound {c['bound_ms'] * 1e3:.2f} us: "
         + ("not measured" if mean is None else f"{c['bound_ms'] * 1e3 / mean:.1%} of it"))
     return c
+
+
+def epilogue_inputs(shape, bias: bool, scale: bool, residual: bool, dtype, dev, seed: int = 0):
+    """Seeded arguments of ``frozen_epilogue``: a map of order one with NaN,
+    infinities, signed zeros, subnormals and values near the dtype's largest
+    scattered through it (and through the shortcut), per-channel constants
+    as a trained network's."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    big = torch.finfo(dtype).max / 2
+
+    def map_():
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        flat = x.view(-1)
+        at = torch.randint(0, flat.numel(), (64,), generator=g, device=dev)
+        flat[at] = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0, 0.0, 1e-40,
+                                 -1e-40, big] * 8, device=dev).to(dtype)
+        return x
+
+    def per_channel(lo, hi):
+        return torch.rand(c, generator=g, device=dev) * (hi - lo) + lo
+
+    y = map_()
+    return dict(y=y, conv_bias=per_channel(-1, 1).to(dtype) if bias else None,
+                mean=per_channel(-1, 1), inv=per_channel(0.2, 2), bn_bias=per_channel(-1, 1),
+                scale=per_channel(0.5, 1.5) if scale else None,
+                scale_bias=per_channel(-1, 1) if scale else None,
+                shortcut=map_() if residual else None)
+
+
+def check_frozen_epilogue(label, shape, bias, scale, residual, relu, dev,
+                          dtype=torch.bfloat16) -> dict:
+    """The frozen epilogue against its plain version bit for bit on
+    :func:`epilogue_inputs`, with its time from CUDA events and from
+    torch.profiler, the plain version's, and the bound (each map element
+    read once, the shortcut once, the output written once)."""
+    kw = dict(epilogue_inputs(shape, bias, scale, residual, dtype, dev), relu=relu)
+    with uncounted():
+        got = frozen_epilogue_cuda.frozen_epilogue(**kw)
+        want = frozen_epilogue_cuda.frozen_epilogue_plain(**kw)
+        torch.cuda.synchronize()
+        bits = _bits_differing(got, want)
+        diff = (got.float() - want.float()).abs()
+        err = float(diff[torch.isfinite(diff)].max()) if bool(torch.isfinite(diff).any()) else 0.0
+        del want, diff
+        ms = time_ms(lambda: frozen_epilogue_cuda.frozen_epilogue(**kw), 20)
+        device = profiled_device_us(lambda: frozen_epilogue_cuda.frozen_epilogue(**kw),
+                                    "frozen_epilogue_kernel")
+    plain = time_ms(lambda: frozen_epilogue_cuda.frozen_epilogue_plain(**kw), 5)
+    n = got.numel()
+    nbytes = n * got.element_size() * (3 if residual else 2) + shape[-1] * 4 * 5
+    c = _case(label, bits == 0, err, ms, plain, None, nbytes, EPILOGUE_OPS * n,
+              F32_FLOPS, bits_differing=bits, shape=list(shape), device_us=device,
+              variant=dict(bias=bias, scale=scale, residual=residual, relu=relu))
+    mean = device["mean_us"]
+    _log_case("frozen_epilogue", c, f"{tuple(shape)} {dtype} bias={bias} scale={scale} "
+              f"residual={residual} relu={relu}; bits differing from the plain version {bits}; "
+              f"device us a launch {mean}, least {device['min_us']} ({device['launches']} "
+              f"traced): " + ("not measured" if mean is None
+                              else f"{c['bound_ms'] * 1e3 / mean:.1%} of the bound"))
+    return c
+
+
+def check_frozen_epilogue_cases(dev) -> list:
+    cases = [check_frozen_epilogue(label, shape, *variant, dev)
+             for label, shape, *variant in EPILOGUE_CASES]
+    bad = [c["case"] for c in cases if not c["ok"]]
+    if bad:
+        raise RuntimeError(f"the frozen epilogue disagrees with its plain version: {bad}")
+    return cases
 
 
 def _bits_differing(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -2113,6 +2197,7 @@ def main() -> int:
     with torch.inference_mode():
         cases["detect"] = check_kernels(calls, "detect")
         adversarial = check_topk_adversarial(dev)
+        epilogue = check_frozen_epilogue_cases(dev)
     del calls
     det = phase_detect(run, first)
     det["breakdown_ms"] = phase_breakdown(run)
@@ -2169,7 +2254,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kernels": kernels,
-                   "cases": dict(cases, topk_adversarial=adversarial, nms_later_step=nms_later),
+                   "cases": dict(cases, topk_adversarial=adversarial, nms_later_step=nms_later,
+                                 frozen_epilogue=epilogue),
                    "detect": det, "train": tr, "other_detect": detects, "four_step": four,
                    "whole_path": whole, "loader_train": loader, "cached_train": cached,
                    "multi_gpu": multi},

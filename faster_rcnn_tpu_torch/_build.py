@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("conv1.cu", "roi_align.cu", "nms.cu", "topk.cu")
+SOURCES = ("conv1.cu", "roi_align.cu", "nms.cu", "topk.cu", "frozen_epilogue.cu")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # NMS compares iou > thresh against the plain version bit for bit: no FMA
@@ -34,13 +34,19 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 EXTRA_FLAGS = {"nms.cu": ["--fmad=false"]}
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES = {"conv1": 0, "roi_align": 0, "roi_align_bwd": 0, "nms": 0, "topk": 0}
+LAUNCHES = {"conv1": 0, "roi_align": 0, "roi_align_bwd": 0, "nms": 0, "topk": 0,
+            "frozen_epilogue": 0}
+# ResNet conv branches (a conv and its frozen batch norm, on every device) by
+# the path they took since the last reset_launches(): "fused", through the
+# frozen epilogue where no autograd runs, or "plain", Conv2d and FrozenAffine
+FROZEN_BRANCHES = {"fused": 0, "plain": 0}
 
 _lib: ctypes.CDLL | None = None
 build_info: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "frcnn_conv1_bf16": [_P, _P, _P, _I, _I, _I, _P],
     "frcnn_conv1_f32": [_P, _P, _P, _I, _I, _I, _P],
@@ -53,6 +59,8 @@ _SIGNATURES = {
     "frcnn_nms_max_active_clusters": [_I, _I, _I, _I],
     "frcnn_topk_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "frcnn_topk_work_bytes": [_I, _I, _I],
+    "frcnn_frozen_epilogue_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
+    "frcnn_frozen_epilogue_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P],
     "frcnn_cuda_error_string": [_I],
 }
 _RESTYPES = {"frcnn_nms_smem_bytes": ctypes.c_size_t,
@@ -61,8 +69,9 @@ _RESTYPES = {"frcnn_nms_smem_bytes": ctypes.c_size_t,
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, FROZEN_BRANCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:

@@ -63,6 +63,13 @@ class Conv2d(nn.Module):
                      self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 
+    def without_bias(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution alone, for an epilogue that adds the bias."""
+        dt = self.dtype
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), None,
+                     self.stride, self.padding)
+        return y.permute(0, 2, 3, 1)
+
 
 class Dense(nn.Module):
     """``flax.linen.Dense``; weight stored (out, in). ``init_std=None`` is
@@ -133,9 +140,11 @@ class FrozenBatchNorm(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
+    def inv(self) -> torch.Tensor:
+        return self.scale / torch.sqrt(self.var + self.epsilon)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = self.scale / torch.sqrt(self.var + self.epsilon)
-        return FrozenAffine.apply(x.to(self.dtype), self.mean, inv, self.bias)
+        return FrozenAffine.apply(x.to(self.dtype), self.mean, self.inv(), self.bias)
 
 
 class ChannelScale(nn.Module):

@@ -18,9 +18,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from faster_rcnn_tpu_torch import _build
 from faster_rcnn_tpu_torch.models.layers import (ChannelScale, Conv2d, FrozenBatchNorm,
                                                   lecun_normal_)
 from faster_rcnn_tpu_torch.ops.conv1_cuda import conv1 as conv1_kernel
+from faster_rcnn_tpu_torch.ops.frozen_epilogue_cuda import frozen_epilogue
 
 # (stage, blocks, filters, first stride) of stages 2-4, by depth
 _STAGES = {
@@ -33,11 +35,38 @@ _STAGES = {
 }
 
 
+def _autograd_runs(x: torch.Tensor, *modules: nn.Module) -> bool:
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for m in modules for p in m.parameters()))
+
+
+def _epilogue(y: torch.Tensor, conv_bias, bn: FrozenBatchNorm, scale: ChannelScale | None,
+              shortcut: torch.Tensor | None = None, relu: bool = False) -> torch.Tensor:
+    """``bn``, ``scale`` (or None), ``+ shortcut`` and the ReLU on a conv's
+    output ``y`` (and its bias first, unless None), in one frozen-epilogue
+    pass: the plain modules' result bit for bit, without autograd."""
+    _build.FROZEN_BRANCHES["fused"] += 1
+    return frozen_epilogue(y, conv_bias, bn.mean, bn.inv(), bn.bias,
+                           None if scale is None else scale.scale,
+                           None if scale is None else scale.bias, shortcut, relu)
+
+
+def _conv_for_epilogue(conv: Conv2d, x: torch.Tensor):
+    """(the conv's output, the bias the epilogue still has to add). cuDNN
+    adds a conv's bias in a pass of its own after the product, which the
+    epilogue takes over; oneDNN on the CPU adds it inside the product,
+    before the rounding, so there the conv keeps it."""
+    if conv.bias is None or x.device.type == "cpu":
+        return conv(x), None
+    return conv.without_bias(x), conv.bias.to(conv.dtype)
+
+
 class Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 with frozen BN, and a projection shortcut on the
     first block of a stage. The stride sits on the first 1x1, as in Keras.
     ``caffe``: bias-free convs and a channel scale after each batch norm
-    (ResNet-101)."""
+    (ResNet-101). Where no autograd runs, each branch's bias, norms, the
+    residual add and the ReLU go through the frozen epilogue."""
 
     def __init__(self, cin: int, filters, stage: int, block: str, stride: int = 1,
                  project: bool = False, caffe: bool = False,
@@ -57,12 +86,24 @@ class Bottleneck(nn.Module):
                 self.add_module(sc + suffix, ChannelScale(co, dtype=dtype))
 
     def _branch(self, x: torch.Tensor, suffix: str) -> torch.Tensor:
+        _build.FROZEN_BRANCHES["plain"] += 1
         nb, bn, sc = self.names
         m = self._modules
         y = m[bn + suffix](m[nb + suffix](x))
         return m[sc + suffix](y) if self.caffe else y
 
+    def _fused(self, x: torch.Tensor, suffix: str, shortcut=None, relu=True) -> torch.Tensor:
+        nb, bn, sc = self.names
+        m = self._modules
+        y, bias = _conv_for_epilogue(m[nb + suffix], x)
+        return _epilogue(y, bias, m[bn + suffix], m[sc + suffix] if self.caffe else None,
+                         shortcut, relu)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not _autograd_runs(x, self):
+            y = self._fused(self._fused(x, "2a"), "2b")
+            sc = self._fused(x, "1", relu=False) if self.project else x
+            return self._fused(y, "2c", shortcut=sc)
         y = F.relu(self._branch(x, "2a"))
         y = F.relu(self._branch(y, "2b"))
         y = self._branch(y, "2c")
@@ -96,13 +137,14 @@ class Conv1(nn.Module):
             if self.bias is not None:
                 self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def without_bias(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         w_hwio = self.weight.to(dt).permute(2, 3, 1, 0).contiguous()
-        y = conv1_kernel(x.to(dt).contiguous(), w_hwio)
-        if self.bias is not None:
-            y = y + self.bias.to(dt)
-        return y
+        return conv1_kernel(x.to(dt).contiguous(), w_hwio)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.without_bias(x)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 class ResNetBackbone(nn.Module):
@@ -131,8 +173,16 @@ class ResNetBackbone(nn.Module):
 
     def _stage(self, x: torch.Tensor, stage: int) -> torch.Tensor:
         if stage == 1:
-            x = self.bn_conv1(self.conv1(x))
-            x = F.relu(self.scale_conv1(x) if self.caffe else x)
+            scale = self.scale_conv1 if self.caffe else None
+            stem = [m for m in (self.conv1, self.bn_conv1, scale) if m is not None]
+            if _autograd_runs(x, *stem):
+                _build.FROZEN_BRANCHES["plain"] += 1
+                x = self.bn_conv1(self.conv1(x))
+                x = F.relu(scale(x) if self.caffe else x)
+            else:
+                bias = self.conv1.bias
+                x = _epilogue(self.conv1.without_bias(x), None if bias is None else
+                              bias.to(self.dtype), self.bn_conv1, scale, relu=True)
             # 3x3/s2 VALID max-pool (resnet.py:413), on the channels_last NCHW view
             return F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
         for name, mod in self.named_children():

@@ -6,9 +6,10 @@ from the CUDA events at its span's edges; the host's waits on the device
 aten operation it sits in, and the host ms spent in them); the kernel
 launches a call; the share of the traced device time launched outside every
 call; the traced window's idle gaps by what the host was doing
-(portbench.harness.digest); and what recording costs the host when on: a
-span opened and closed on its own, and calls timed with recording off and
-on, in alternating blocks.
+(portbench.harness.digest); the ResNet branches a call runs through the
+frozen epilogue and through the modules; and what recording costs the host
+when on: a span opened and closed on its own, and calls timed with
+recording off and on, in alternating blocks.
 
     python3 scripts/trace_spans_torch.py [--cells CELL ...] [--calls 10]
         [--rounds 20] [--block 5] [--seed N] [--out chiprun_out/trace_spans.json]
@@ -38,6 +39,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from faster_rcnn_tpu_torch import _build  # noqa: E402
 from faster_rcnn_tpu_torch.utils import profiling  # noqa: E402
 from portbench import harness, inputs, port, weights  # noqa: E402
 
@@ -101,13 +103,17 @@ class Cell:
 
 def traced(cell: Cell, calls: int) -> dict:
     """``calls`` calls under utils/profiling.device_trace: the spans and
-    runtime calls it writes beside the trace, digested."""
+    runtime calls it writes beside the trace, digested, and the ResNet
+    branches a call takes through the frozen epilogue and through the
+    modules (``_build.FROZEN_BRANCHES``)."""
+    before = dict(_build.FROZEN_BRANCHES)
     with tempfile.TemporaryDirectory() as d:
         with profiling.device_trace(d) as prof:
             with torch.profiler.record_function(harness.Tracer.NAME):
                 for i in range(calls):
                     out = cell.call(cell.prepare(i))
                     cell.finish(out)
+        branches = {k: (v - before[k]) / calls for k, v in _build.FROZEN_BRANCHES.items()}
         with open(sorted(glob.glob(os.path.join(d, "spans_*.json")))[-1]) as f:
             found = json.load(f)
         dig = harness.digest(prof)
@@ -146,6 +152,7 @@ def traced(cell: Cell, calls: int) -> dict:
         "host_syncs": mean([c["syncs"] for c in mine]),
         "sync_wait_ms": mean([c["sync_wait_ms"] for c in mine]),
         "launches": mean([c["launches"] for c in mine]),
+        "frozen_branches": branches,
         "sync_sites": [{"call": k[0], "span": k[1], "op": k[2], "per_call": v / len(mine),
                         "wait_ms": waits[k]} for k, v in sites.most_common()],
         "outside_ms": found["outside_ms"], "device_ms": found["device_ms"],
@@ -235,7 +242,7 @@ def main(argv=None) -> int:
         tr = got["traced"]
         print(name, json.dumps({k: tr[k] for k in (
             "calls", "stage_device_ms", "call_device_ms", "stages_over_call", "call_host_ms",
-            "host_syncs", "sync_wait_ms", "launches", "idle_pct",
+            "host_syncs", "sync_wait_ms", "launches", "frozen_branches", "idle_pct",
             "spans_on_the_device_timeline")}), flush=True)
         print(name, "sync sites", json.dumps(tr["sync_sites"]), flush=True)
         print(name, "outside", tr["outside_ms"], "of", tr["device_ms"], "device ms", flush=True)

@@ -8,17 +8,24 @@ nvcc, run them without the JAX-side conftest:
 The file imports nothing of JAX, so it runs where JAX is not installed.
 """
 
+from pathlib import Path
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _bits_differing, conv1_integer_mismatches, topk_adversarial
+from chip_smoke import (EPILOGUE_CASES, _bits_differing, conv1_integer_mismatches,
+                        epilogue_inputs, kitti_batch, topk_adversarial)
 from faster_rcnn_tpu_torch import _build, config
+from faster_rcnn_tpu_torch.models import resnet
 from faster_rcnn_tpu_torch.models.detector import init_model
 from faster_rcnn_tpu_torch.models.resnet import Conv1
 from faster_rcnn_tpu_torch.ops import conv1_cuda, nms, nms_cuda, roi_align_cuda, sort, sort_cuda
+from faster_rcnn_tpu_torch.ops.frozen_epilogue_cuda import frozen_epilogue, frozen_epilogue_plain
 from faster_rcnn_tpu_torch.parallel.freeze import make_optimizer
 from faster_rcnn_tpu_torch.train import device_cache, pipeline, trainer
+from portbench import harness, port, weights
 
 pytestmark = pytest.mark.gpu
 
@@ -514,8 +521,12 @@ def test_four_step_train_steps_run_on_cuda_by_default(cuda, network):
     assert all(p.is_cuda for p in rpn.parameters())
     want = {1: {"topk": 2}, 2: {"topk": 1, "nms": 1, "roi_align": 1, "roi_align_bwd": 1},
             4: {"topk": 1, "nms": 1, "roi_align": 1}}
-    if network == "resnet101":  # the bias-free stem, once per backbone run
-        want = {1: dict(want[1], conv1=1), 2: dict(want[2], conv1=2), 4: dict(want[4], conv1=1)}
+    if network == "resnet101":  # the bias-free stem, once per backbone run; the frozen
+        # epilogue on every branch that runs without autograd: the frozen prefix (stem, stage
+        # 2: 11 branches) of steps 1 and 2, and the frozen RPN's backbone (94) of steps 2 and 4
+        want = {1: dict(want[1], conv1=1, frozen_epilogue=11),
+                2: dict(want[2], conv1=2, frozen_epilogue=105),
+                4: dict(want[4], conv1=1, frozen_epilogue=94)}
     for step in (1, 2, 4):
         model = init_model(0, cfg)
         fb, fm = trainer.step_freeze_spec(step, cfg)
@@ -573,8 +584,9 @@ def test_cached_chunk_on_cuda_launches_what_its_steps_launch(cuda, network):
     per_step = {1: {"topk": 2}, 2: {"topk": 1, "nms": 1, "roi_align": 1, "roi_align_bwd": 1},
                 4: {"topk": 1, "nms": 1, "roi_align": 1}}
     if network == "resnet101":
-        per_step = {1: dict(per_step[1], conv1=1), 2: dict(per_step[2], conv1=2),
-                    4: dict(per_step[4], conv1=1)}
+        per_step = {1: dict(per_step[1], conv1=1, frozen_epilogue=11),
+                    2: dict(per_step[2], conv1=2, frozen_epilogue=105),
+                    4: dict(per_step[4], conv1=1, frozen_epilogue=94)}
     rpn = init_model(1, cfg)
     for step in (1, 2, 4):
         _, _, step_fn_for = trainer.setup_step(step, cfg, None, rpn.state_dict(), 0, cuda)
@@ -588,3 +600,81 @@ def test_cached_chunk_on_cuda_launches_what_its_steps_launch(cuda, network):
         assert got == {k: 2 * v for k, v in per_step[step].items()}, (step, got)
         assert all(v.is_cuda and v.shape == (2,) and bool(torch.isfinite(v).all())
                    for v in metrics.values())
+
+
+_VARIANTS = [(bias, scale, res, relu) for bias in (False, True) for scale in (False, True)
+             for res in (False, True) for relu in (False, True)]
+
+
+@pytest.mark.parametrize("label,shape,bias,scale,residual,relu", EPILOGUE_CASES)
+def test_frozen_epilogue_bit_exact_at_the_path_shapes(cuda, label, shape, bias, scale, residual,
+                                                      relu):
+    """The stem's, stage 2's and stage 5's maps at B=16 and 300 ROIs,
+    bf16, with NaN, infinities, signed zeros, subnormals and near-largest
+    values among them (chip_smoke.epilogue_inputs)."""
+    kw = dict(epilogue_inputs(shape, bias, scale, residual, torch.bfloat16, cuda), relu=relu)
+    got = frozen_epilogue(**kw)
+    assert _bits_differing(got, frozen_epilogue_plain(**kw)) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(3, 5, 7, 24), (7, 37, 61, 200)])
+def test_frozen_epilogue_bit_exact_in_every_variant(cuda, shape, dtype):
+    """Channel counts whose 16-byte vectors do not divide a block (3, 25 in
+    bf16; 6, 50 in f32), a map too small to fill the grid and one the grid
+    loops over, each variant of bias, scale, shortcut and ReLU."""
+    for i, variant in enumerate(_VARIANTS):
+        kw = dict(epilogue_inputs(shape, *variant[:3], dtype, cuda, seed=i), relu=variant[3])
+        got = frozen_epilogue(**kw)
+        assert _bits_differing(got, frozen_epilogue_plain(**kw)) == 0, variant
+
+
+def test_frozen_epilogue_counts_launches_and_rejects_bad_input(cuda):
+    kw = epilogue_inputs((2, 3, 5, 64), True, False, True, torch.bfloat16, cuda)
+    before = _build.LAUNCHES["frozen_epilogue"]
+    frozen_epilogue(**kw)
+    assert _build.LAUNCHES["frozen_epilogue"] == before + 1
+    bad = [dict(kw, y=kw["y"][..., :60]),                          # 60 channels: not 16 bytes
+           dict(kw, y=kw["y"].transpose(1, 2).contiguous().transpose(1, 2)),  # not contiguous
+           dict(kw, shortcut=kw["shortcut"].float()),
+           dict(kw, conv_bias=kw["conv_bias"].float()),
+           dict(kw, mean=kw["mean"].to(torch.bfloat16)),
+           dict(kw, y=kw["y"].to(torch.float16))]
+    for args in bad:
+        with pytest.raises((ValueError, TypeError)):
+            frozen_epilogue(**args)
+    with pytest.raises(RuntimeError, match="no backward"):
+        frozen_epilogue(**dict(kw, y=kw["y"].float().requires_grad_().to(torch.bfloat16)))
+    assert _build.LAUNCHES["frozen_epilogue"] == before + 1
+
+
+def test_resnet50_detect_with_and_without_the_epilogue(cuda):
+    """One B=2 ResNet-50 detect call at the KITTI canvas through the frozen
+    epilogue (inference mode), and the same call with every ResNet branch
+    through Conv2d, FrozenAffine and the ReLU (as where the weights require
+    grad): the same backbone map and detections, bit for bit. The
+    benchmark's seeded weights: conv biases and batch norms away from the
+    identity, and detections on noise frames."""
+    spec = harness.find_cell(Path(__file__).resolve().parents[1], "r50_kitti.detect_b16")["spec"]
+    model = port.model(spec, weights.make_weights(spec, 2 ** 31 + 17, cuda), cuda)
+    detect = port.detect_fn(spec, model, cuda)
+    img, hw = kitti_batch(np.random.RandomState(0), 2, config.kitti_config())
+    x = pipeline.ingest_images(torch.as_tensor(img, device=cuda))
+
+    def run():
+        _build.reset_launches()
+        with torch.inference_mode():
+            feat = model.backbone(x)
+        dets = detect(img, hw)
+        torch.cuda.synchronize()
+        return (feat, *dets), dict(_build.FROZEN_BRANCHES), _build.LAUNCHES["frozen_epilogue"]
+
+    fused, branches, launched = run()
+    assert branches == {"fused": 43 + 53, "plain": 0} and launched == 43 + 53
+    with mock.patch.object(resnet, "_autograd_runs", lambda *args: True):
+        plain, branches, launched = run()
+    assert branches == {"fused": 0, "plain": 43 + 53} and launched == 0
+    assert int(fused[-1].sum()) > 0  # detections to compare
+    for a, b in zip(fused, plain):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert (_bits_differing(a, b) == 0 if a.is_floating_point() else torch.equal(a, b))
